@@ -1,0 +1,218 @@
+"""Autoregressive decoding with a preallocated KV cache: the port of
+``nanotpu/models/generate.py``.
+
+The cache holds ``max_len`` positions per layer, allocated once; prefill
+writes the prompt's k/v, and each decode step attends one new token against
+the cache under a position mask. GQA caches the KV heads unexpanded
+(``[.., n_kv_heads, hd]``), and the attend einsum groups q heads onto them.
+
+Unlike the JAX original, the cache is updated in place (JAX returns a new
+array for each update): one cache lives on the device, not two. Its
+``length`` is a host integer, so no step waits on the device to learn it.
+A prefill into an empty cache with ``attn_impl="flash"`` runs the flash
+kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from nanotpu_torch import resolve_device
+from nanotpu_torch.models.llama import (
+    LlamaConfig,
+    apply_rope,
+    embed_lookup,
+    linear,
+    mlp,
+    rms_norm,
+    rope_freqs,
+)
+from nanotpu_torch.ops.attention import NEG_INF, flash_attention
+
+
+class KVCache(NamedTuple):
+    """Per-layer cache: k/v are LENGTH-L TUPLES of [B, max_len, n_kv_heads,
+    head_dim] tensors; ``length`` is the number of valid positions."""
+
+    k: tuple
+    v: tuple
+    length: int
+
+    @staticmethod
+    def create(cfg: LlamaConfig, batch: int, max_len: int,
+               device=None) -> "KVCache":
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        device = resolve_device(device)
+        return KVCache(
+            k=tuple(torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+                    for _ in range(cfg.n_layers)),
+            v=tuple(torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+                    for _ in range(cfg.n_layers)),
+            length=0,
+        )
+
+
+def _attend_cached(q, k_cache, v_cache, valid_len: int):
+    """q [B,S,H,hd] against cache [B,max_len,KV,hd]; positions >= valid_len
+    masked. For prefill S>1, q position i attends cache[: start+i+1] where
+    start = valid_len - S (causal within the new block)."""
+    B, S, H, hd = q.shape
+    KV, max_len = k_cache.shape[2], k_cache.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    logits = torch.einsum("bsgrd,btgd->bgrst", qg, k_cache).float() * scale
+    pos = torch.arange(max_len, device=q.device)
+    q_end = valid_len - S + torch.arange(S, device=q.device) + 1
+    mask = pos[None, :] < q_end[:, None]  # [S, max_len]
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrst,btgd->bsgrd", probs, v_cache)
+    return out.reshape(B, S, H, hd)
+
+
+def _layer_with_cache(layer, x, cfg, cos, sin, k_cache, v_cache, start: int,
+                      full_prefill: bool = False):
+    """One decoder layer over new tokens x [B,S,D], writing this layer's
+    k/v at [start, start+S) of the cache in place. Returns x.
+
+    ``full_prefill`` marks the cache-was-empty case: attention is plain
+    causal self-attention over the prompt, so ``attn_impl="flash"`` runs it
+    through the flash kernel instead of attending the whole cache."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = layer["attn"]
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q = linear(h, attn["wq"]).reshape(B, S, H, hd)
+    k = linear(h, attn["wk"]).reshape(B, S, KV, hd)
+    v = linear(h, attn["wv"]).reshape(B, S, KV, hd)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    k_cache[:, start:start + S] = k
+    v_cache[:, start:start + S] = v
+    if full_prefill and cfg.attn_impl == "flash":
+        # GQA-native kernel: k/v enter at kv-head granularity (no repeat)
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        out = _attend_cached(q, k_cache, v_cache, start + S)
+    x = x + linear(out.reshape(B, S, H * hd), attn["wo"])
+    return x + mlp(layer["mlp"], rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+
+
+def _run(params, tokens, cfg, cache: KVCache, full_prefill: bool = False,
+         return_all: bool = False):
+    """Shared prefill/step body: tokens [B,S] appended at cache.length.
+    ``return_all`` returns logits for every fed position [B,S,V], else
+    last-token logits [B,V]."""
+    S = tokens.shape[1]
+    start = cache.length
+    positions = start + torch.arange(S, dtype=torch.int32, device=tokens.device)
+    cos, sin = rope_freqs(cfg, positions)
+    x = embed_lookup(params["embed"], tokens)
+    for i, layer in enumerate(params["layers"]):
+        x = _layer_with_cache(
+            layer, x, cfg, cos, sin, cache.k[i], cache.v[i], start,
+            full_prefill=full_prefill,
+        )
+    new_cache = cache._replace(length=start + S)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x_out = x if return_all else x[:, -1]
+    return linear(x_out, params["lm_head"]).float(), new_cache
+
+
+def prefill(params, prompt: torch.Tensor, cfg: LlamaConfig, max_len: int):
+    """prompt [B,S] -> (last-token logits [B,V], primed cache). The cache
+    starts empty, so attention is causal self-attention over the prompt,
+    through the flash kernel when ``attn_impl="flash"``."""
+    cache = KVCache.create(cfg, prompt.shape[0], max_len, device=prompt.device)
+    return _run(params, prompt, cfg, cache, full_prefill=True)
+
+
+def decode_step(params, token: torch.Tensor, cfg: LlamaConfig,
+                cache: KVCache):
+    """token [B] -> (logits [B,V], cache advanced by one)."""
+    return _run(params, token[:, None], cfg, cache)
+
+
+def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Mask all but each row's k highest logits to NEG_INF."""
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]  # [B, 1]
+    return torch.where(logits < kth, NEG_INF, logits)
+
+
+def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filtering: keep the smallest set of tokens whose cumulative
+    probability reaches p; the top token always survives (a p <= 0 keeps it
+    alone rather than masking everything)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum_before = torch.cumsum(probs, dim=-1) - probs  # exclusive cumsum
+    first = torch.arange(logits.shape[-1], device=logits.device) == 0
+    keep = (cum_before < p) | first
+    # lowest kept logit per row is the admission threshold
+    threshold = torch.where(keep, sorted_logits, math.inf).amin(
+        dim=-1, keepdim=True
+    )
+    return torch.where(logits < threshold, NEG_INF, logits)
+
+
+def warp_logits(logits: torch.Tensor, temperature: float, top_k: int = 0,
+                top_p: float = 1.0) -> torch.Tensor:
+    """Shared sampling warp: temperature, then top-k, then nucleus."""
+    logits = logits / temperature
+    if top_k:
+        logits = apply_top_k(logits, top_k)
+    if top_p < 1.0:
+        logits = apply_top_p(logits, top_p)
+    return logits
+
+
+def sample_categorical(logits: torch.Tensor,
+                       generator: torch.Generator | None) -> torch.Tensor:
+    """One draw per row from softmax(logits) by the Gumbel-max trick, as
+    ``jax.random.categorical`` draws; no host sync."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+@torch.inference_mode()
+def generate(
+    params, prompt: torch.Tensor, cfg: LlamaConfig, max_new_tokens: int,
+    temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+    generator: torch.Generator | None = None, max_len: int | None = None,
+    eos_id: int = -1,
+) -> torch.Tensor:
+    """Greedy (temperature=0) or sampled generation, with optional top-k
+    and/or nucleus filtering when temperature > 0.
+
+    prompt [B, S] -> generated tokens [B, max_new_tokens]. ``eos_id >= 0``
+    enables stop-token semantics: once a row emits eos, every later
+    position repeats eos."""
+    B, S = prompt.shape
+    max_len = max_len or min(cfg.max_seq_len, S + max_new_tokens)
+    if S + max_new_tokens > max_len:
+        raise ValueError(
+            f"prompt {S} + new {max_new_tokens} exceeds max_len {max_len}"
+        )
+    logits, cache = prefill(params, prompt, cfg, max_len)
+
+    def sample(logits):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        return sample_categorical(
+            warp_logits(logits, temperature, top_k, top_p), generator
+        )
+
+    token = sample(logits)
+    done = (token == eos_id) if eos_id >= 0 else None
+    out = [token]
+    for _ in range(max_new_tokens - 1):
+        logits, cache = decode_step(params, token, cfg, cache)
+        token = sample(logits)
+        if eos_id >= 0:
+            token = torch.where(done, eos_id, token)
+            done = done | (token == eos_id)
+        out.append(token)
+    return torch.stack(out, dim=1)  # [B, max_new_tokens]
