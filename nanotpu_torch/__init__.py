@@ -1,11 +1,12 @@
-"""nanotpu's serving path in PyTorch, for one NVIDIA H100.
+"""nanotpu's serving and training paths in PyTorch, for one NVIDIA H100.
 
 A port of the JAX package ``nanotpu`` that stays beside it as the
 reference. The layout mirrors nanotpu's, so each module's counterpart has
 the same path: ``models/llama.py``, ``models/generate.py``,
-``ops/attention.py``, ``serving/engine.py`` and ``serving/server.py``. The
-parameter tree is nanotpu's (dicts and lists, ``[in, out]`` weights used as
-``x @ w``); :func:`nanotpu_torch.convert.params_from_numpy` carries one over.
+``ops/attention.py``, ``serving/engine.py``, ``serving/server.py``,
+``parallel/train.py`` and ``data/``. The parameter tree is nanotpu's (dicts
+and lists, ``[in, out]`` weights used as ``x @ w``);
+:func:`nanotpu_torch.convert.params_from_numpy` carries one over.
 
 The package imports torch, numpy and the standard library, never jax and
 never nanotpu. Entry points that allocate run on ``cuda`` unless the caller

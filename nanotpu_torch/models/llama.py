@@ -5,20 +5,29 @@ RMSNorm with f32 accumulation, rotary embeddings, GQA attention and a
 SwiGLU MLP; parameters are a dict of ``[in, out]`` weights used as
 ``x @ w``, per-layer dicts in a list. ``attn_impl="flash"`` routes
 attention through :func:`nanotpu_torch.ops.attention.flash_attention`;
-``"dense"`` is the plain einsum chain. The loss, remat and the
-sequence-parallel attentions come with the training path.
+``"dense"`` is the plain einsum chain. :func:`loss_fn` is the chunked
+next-token cross entropy, and ``remat`` recomputes each layer in backward
+through ``torch.utils.checkpoint``. The sequence-parallel attentions are
+not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from nanotpu_torch import resolve_device
 from nanotpu_torch.ops.attention import NEG_INF, flash_attention
+from nanotpu_torch.tree import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +45,8 @@ class LlamaConfig:
     #: "dense" (einsum chain) or "flash" (the CUDA kernel)
     attn_impl: str = "dense"
     remat: bool = False
+    #: "full" recomputes the whole layer in backward; "dots" saves the
+    #: matmul outputs and recomputes the rest
     remat_policy: str = "full"
 
     @property
@@ -199,6 +210,35 @@ def decoder_layer(params: dict, x: torch.Tensor, cfg: LlamaConfig,
 
 # -- forward ---------------------------------------------------------------
 
+#: the ops whose outputs remat_policy="dots" keeps (jax's dots_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_layer(cfg: LlamaConfig):
+    """decoder_layer under a non-reentrant checkpoint: nothing saved
+    ("full"), or the matmul outputs saved ("dots")."""
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not one of "
+                         "'full', 'dots'")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def layer(params, x, cfg, cos, sin):
+        return checkpoint(decoder_layer, params, x, cfg, cos, sin,
+                          use_reentrant=False, **kw)
+
+    return layer
+
+
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                   positions: torch.Tensor | None = None) -> torch.Tensor:
     """tokens [B, S] int -> final-norm hidden states [B, S, D]."""
@@ -207,8 +247,9 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_freqs(cfg, positions)
     x = embed_lookup(params["embed"], tokens)
+    layer_fn = _remat_layer(cfg) if cfg.remat else decoder_layer
     for layer_params in params["layers"]:
-        x = decoder_layer(layer_params, x, cfg, cos, sin)
+        x = layer_fn(layer_params, x, cfg, cos, sin)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -218,3 +259,39 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     x = hidden_states(params, tokens, cfg, positions)
     return linear(x, params["lm_head"]).float()
 
+
+#: Sequence-chunk length of the cross entropy: the [B, S, vocab] f32 logits
+#: and their gradient never exist whole, only [B, CE_CHUNK, vocab] at a time;
+#: each chunk's lm_head product is recomputed in backward.
+CE_CHUNK = 256
+
+
+def _chunk_nll(lm_head: torch.Tensor, h: torch.Tensor,
+               targets: torch.Tensor) -> torch.Tensor:
+    """Summed next-token NLL of one hidden-state chunk (f32)."""
+    logits = linear(h, lm_head).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long(), reduction="sum")
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy over tokens[:, :-1] -> tokens[:, 1:], in
+    sequence chunks of CE_CHUNK (each under a non-reentrant checkpoint)
+    when the length divides, in one piece otherwise."""
+    B, S1 = tokens.shape
+    S = S1 - 1
+    x = hidden_states(params, tokens[:, :-1], cfg)
+    targets = tokens[:, 1:]
+    if S <= CE_CHUNK or S % CE_CHUNK:
+        return _chunk_nll(params["lm_head"], x, targets) / (B * S)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, CE_CHUNK):
+        total = total + checkpoint(
+            _chunk_nll, params["lm_head"], x[:, i:i + CE_CHUNK],
+            targets[:, i:i + CE_CHUNK], use_reentrant=False,
+        )
+    return total / (B * S)
+
+
+def param_count(params) -> int:
+    return sum(p.numel() for p in leaves(params))

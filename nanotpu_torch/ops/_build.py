@@ -3,8 +3,9 @@
 Each source under ``csrc/`` compiles with ``nvcc`` into a shared library
 with a plain C interface, which :func:`library` loads with ``ctypes``. The
 build runs at first use, into ``nanotpu_torch/_build/``; a library's file
-name carries a hash of its source and flags, so an edited source builds
-anew and an unchanged one is reused. Nothing here runs at import time: a
+name carries a hash of its source, of every header the source includes
+from ``csrc/``, and of the flags, so an edited source or header builds anew
+and an unchanged one is reused. Nothing here runs at import time: a
 machine without ``nvcc`` imports the package and uses the kernels' plain
 versions on CPU tensors.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 #: one library per source; the key is the library's name
-SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu"}
+SOURCES = {
+    "flash_fwd": CSRC / "flash_fwd.cu",
+    "flash_bwd": CSRC / "flash_bwd.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,10 +50,30 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(src: Path) -> list[Path]:
+    """``src`` and every file it includes from ``csrc/`` with ``#include
+    "..."``, transitively, each once."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / name.decode()).resolve()
+            if dep.is_relative_to(CSRC) and dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs(SOURCES[name]):
+        h.update(path.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -73,6 +98,10 @@ def build_all() -> dict[str, dict]:
         for name, (proc, tmp, out, t0) in started.items():
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
+                for other, *_ in started.values():
+                    if other.poll() is None:
+                        other.kill()
+                        other.wait()
                 raise RuntimeError(
                     f"nvcc failed for {SOURCES[name].name} "
                     f"(exit {proc.returncode}):\n{stdout}{stderr}"

@@ -107,6 +107,23 @@ def test_library_names_carry_the_source_hash():
     assert all(src.exists() for src in _build.SOURCES.values())
 
 
+def test_library_names_carry_the_included_headers(monkeypatch, tmp_path):
+    """Editing a header that a source includes from csrc/ renames the
+    library, so a stale build is never loaded."""
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "SOURCES", {
+        name: tmp_path / path.name for name, path in _build.SOURCES.items()})
+    assert {p.name for p in _build._inputs(_build.SOURCES["flash_bwd"])} == {
+        "flash_bwd.cu", "flash_common.cuh"}
+    before = {name: _build._target(name) for name in _build.SOURCES}
+    header = tmp_path / "flash_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: _build._target(name) for name in _build.SOURCES}
+    assert all(before[n] != after[n] for n in ("flash_fwd", "flash_bwd"))
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     if torch.cuda.is_available():
