@@ -6,9 +6,11 @@ tests/test_torch_cuda.py``.
 
 Tolerances: forward, bf16 2e-2 against the plain version in f32 on the same
 inputs (the kernel rounds only its output to bf16); f32 1e-4 (summation
-order). Backward, bf16 2e-2 of the reference's largest magnitude (p and ds
-are rounded to bf16 for their products, as on the TPU, and dq's atomic sum
-runs in no fixed order); f32 1e-4."""
+order). Backward, bf16 2e-2 element by element, of |want| plus the RMS of
+want's row over the last axis (at least 1e-3): p and ds are rounded to bf16
+for their products, as on the TPU, and dq's atomic sum runs in no fixed
+order, while a dropped tile costs most of |want| in each row it touches;
+f32 1e-4 of the largest magnitude, at least 1."""
 
 import dataclasses
 
@@ -103,6 +105,18 @@ def _rel_err(got, want):
             / want.float().abs().max().clamp_min(1.0)).item()
 
 
+def _row_err(got, want):
+    """The largest |got - want| / (|want| + the RMS of want's row over the
+    last axis, at least 1e-3): no gradient row is too small to be held."""
+    want = want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-3)
+    return ((got.float() - want).abs() / (want.abs() + rms)).max().item()
+
+
+def _grad_err(got, want, dtype):
+    return _row_err(got, want) if dtype == torch.bfloat16 else _rel_err(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["fused", "two_pass"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -129,7 +143,7 @@ def test_bwd_kernels_match_plain(card, path, dtype, D, S, causal, H, KV):
     torch.cuda.synchronize()
     for name, g, w, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
         assert g.shape == like.shape and g.dtype == dtype, name
-        err = _rel_err(g, w) if dtype == torch.bfloat16 else (
+        err = _row_err(g, w) if dtype == torch.bfloat16 else (
             (g - w).abs().max().item())
         assert err <= TOL[dtype], (name, err)
 
@@ -138,7 +152,10 @@ def test_bwd_kernels_match_plain(card, path, dtype, D, S, causal, H, KV):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_lse_cotangent_reaches_qkv_on_card(card, dtype):
     """flash_attention_lse's lse gradient folds into D: the same q/k/v
-    gradients as autograd of the plain version."""
+    gradients as autograd of the plain version, taken at the cotangents the
+    loss gives the kernel's outputs (2 out, 2 lse). In bf16 these differ
+    from the plain version's own (out is rounded), which moves short rows'
+    dq by more than the kernels' rounding does."""
     gen = torch.Generator(device=card).manual_seed(7)
     q, k, v = (torch.randn((2, 100, h, 64), generator=gen, device=card)
                .to(dtype).requires_grad_(True) for h in (8, 2, 2))
@@ -146,10 +163,10 @@ def test_lse_cotangent_reaches_qkv_on_card(card, dtype):
     g = torch.autograd.grad((lse ** 2).sum() + (out.float() ** 2).sum(),
                             (q, k, v))
     qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
-    ro, rl = attention_lse_ref(qf, kf, vf, True)
-    want = torch.autograd.grad((rl ** 2).sum() + (ro ** 2).sum(), (qf, kf, vf))
+    want = torch.autograd.grad(attention_lse_ref(qf, kf, vf, True), (qf, kf, vf),
+                               (2 * out.detach().float(), 2 * lse.detach()))
     for a, b in zip(g, want):
-        assert _rel_err(a, b) <= TOL[dtype]
+        assert _grad_err(a, b, dtype) <= TOL[dtype]
 
 
 @pytest.mark.cuda
