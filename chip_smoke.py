@@ -13,14 +13,17 @@ them:
    and at the training flagship's shape (B=8, S=2048, 16/4 heads, out and
    lse); then its time, the plain version's, SDPA's (a yardstick the port
    never calls) and the bound, at the serving flagship's buckets and at the
-   training flagship's shape;
+   training flagship's shape (SDPA's forward there too);
 4. backward kernel phase: the fused, dq and dk/dv kernels against their
    plain version (``attention_bwd_ref``) at the training flagship's shape
-   (B=8, S=2048, 16/4 heads, D=64, bf16) and at D=128 (8/2 heads), and in
-   f32 at S=130, each bf16 gradient element by element (GRAD_RMS_FLOOR),
-   on forward outputs that are held against their plain version first;
-   then each one's time, its bound, the plain version's and SDPA's
-   backward (forward + backward minus forward);
+   (B=8, S=2048, 16/4 heads, D=64, bf16), at D=128 (8/2 heads), at a
+   ragged S=2047 and with one KV head (8/1, D=128), and in f32 at S=130,
+   each bf16 gradient element by element (GRAD_RMS_FLOOR), on forward
+   outputs that are held against their plain version first; then each
+   one's time, its bound, the plain version's and SDPA's backward
+   (forward + backward minus forward), and the fused pass against the
+   two-pass pair at S=8192 (B=1, 16/4 heads); the assembler's registers
+   and spills of the bf16 dk/dv kernels, which must not spill;
 5. serving phase: the serving flagship preset (vocab 32768, dim 1024, 12
    layers, 16/8 heads, bf16) at full width with 8 slots and max_len 2048,
    random weights from a seeded generator, behind the port's HTTP server;
@@ -34,7 +37,8 @@ them:
    bf16, ``--attn flash --seq 2049 --batch 8 --data markov --steps 10``):
    finite losses, lower at step 10 than at step 1, 8 fused backward
    launches and at least 8 forward launches a step; peak memory, steady
-   tokens/s and one step under the profiler;
+   tokens/s and one step under the profiler, with the fused backward's
+   share of its device-busy time;
 8. two-pass phase: one such step with ``FUSED_BWD_MAX_S = 0`` (what
    ``NANOTPU_FLASH_FUSED_BWD_MAX_S=0`` sets at import), so the dq and dk/dv
    kernels run on the path, 8 launches each;
@@ -56,6 +60,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -208,12 +213,16 @@ def kernel_phase(card: str) -> dict:
                         ref_lse, torch.bfloat16)
     del out, lse, ref_out, ref_lse
     ms = cuda_ms(lambda: flash_attention(q, k, v, True, need_lse=True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
     bound_ms, bound_by = attention_bound_ms(TRAIN_B, TRAIN_S, 16, 4, 64,
                                             torch.bfloat16)
     print(f"flash_fwd B={TRAIN_B} S={TRAIN_S} 16/4 heads with lse (training "
-          f"shape): kernel {ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-          f"err {err:.3g}")
-    rows["train"] = {"ms": ms, "bound_ms": bound_ms, "max_abs_err": err}
+          f"shape): kernel {ms:.4f} ms, SDPA forward {library_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}), err {err:.3g}")
+    rows["train"] = {"ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                     "max_abs_err": err}
     reset_launches()  # comparisons and timings do not count
     return rows
 
@@ -286,13 +295,15 @@ def backward_phase(card: str) -> dict:
     """Every backward kernel against its plain version, then timed at the
     training flagship's shape. bf16 is held element by element to 2e-2 of
     |want| plus its row's RMS (p and ds are rounded to bf16 for their
-    products, and dq's atomic sum has no fixed order), f32 to 1e-4
+    products, and the fused pass sums dq in no fixed order), f32 to 1e-4
     absolute."""
     from nanotpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(TRAIN_B, TRAIN_S, 16, 4, 64, torch.bfloat16, True),
              (2, TRAIN_S, 8, 2, 128, torch.bfloat16, True),
+             (2, TRAIN_S - 1, 16, 4, 64, torch.bfloat16, True),
+             (2, TRAIN_S, 8, 1, 128, torch.bfloat16, True),
              (2, 130, 16, 4, 64, torch.float32, True),
              (2, 130, 8, 2, 128, torch.float32, False)]
     errs = {}
@@ -351,9 +362,41 @@ def backward_phase(card: str) -> dict:
                       "max_abs_err": errs[name], "replaces": replaces}
         print(f"{name}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
               f"({bound_by}, {products} products), plain {plain_ms:.4f} ms, "
-              f"SDPA backward {library_ms:.4f} ms")
+              f"SDPA backward {library_ms:.4f} ms, x SDPA "
+              f"{ms / library_ms:.2f}")
+    del q, k, v, out, lse, dout, dvec, qt, kt, vt, dt
+
+    # the fused pass against the two-pass pair past FUSED_BWD_MAX_S's
+    # default, where the dispatch takes the pair
+    q, k, v, out, lse, dout, dvec = bwd_inputs(gen, 1, 4 * TRAIN_S, 16, 4, 64,
+                                               torch.bfloat16)
+    fused = cuda_ms(lambda: run_bwd("flash_bwd_fused", q, k, v, dout, lse,
+                                    dvec), reps=10)
+    pair = cuda_ms(lambda: (run_bwd("flash_bwd_dq", q, k, v, dout, lse, dvec),
+                            run_bwd("flash_bwd_dkv", q, k, v, dout, lse, dvec)),
+                   reps=10)
+    print(f"B=1 S={4 * TRAIN_S} 16/4 D=64 bf16 causal on {card}: fused "
+          f"{fused:.4f} ms, two-pass pair {pair:.4f} ms")
     reset_launches()  # comparisons and timings do not count
     return rows
+
+
+def kv_ptxas(report: dict) -> dict:
+    """{kernel: (registers, spill bytes)} of the bf16 dk/dv kernels
+    (``bwd_kv_bf16<D, kDq>``) from the assembler's report of this build;
+    empty where flash_bwd was not built in this process."""
+    text = report.get("flash_bwd", {}).get("ptxas", "")
+    found = {}
+    for part in text.split("Function properties for ")[1:]:
+        name = part.split(None, 1)[0]
+        m = re.search(r"bwd_kv_bf16ILi(\d+)ELb(\d)E", name)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           part)
+        regs = re.search(r"Used (\d+) registers", part)
+        if m and spills and regs:
+            found[f"bwd_kv_bf16<{m[1]}, {'true' if m[2] == '1' else 'false'}>"] = (
+                int(regs[1]), int(spills[1]) + int(spills[2]))
+    return found
 
 
 def bucket(n: int) -> int:
@@ -485,10 +528,11 @@ def serving_phase(card: str) -> dict:
         engine.stop()
 
 
-def device_profile(fn) -> tuple:
-    """(wall ms, device-busy ms, top kernels) of one call of ``fn`` under
-    the profiler; busy time is the sum of the kernels' device time (one
-    stream, so they do not overlap). None where the profiler saw none."""
+def device_profile(fn, named: str = "") -> tuple:
+    """(wall ms, device-busy ms, top kernels, device ms of the kernels
+    whose name holds ``named``) of one call of ``fn`` under the profiler;
+    busy time is the sum of the kernels' device time (one stream, so they
+    do not overlap). None where the profiler saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -504,7 +548,8 @@ def device_profile(fn) -> tuple:
     events = sorted(prof.key_averages(), key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e3
     top = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count) for e in events[:6]]
-    return wall * 1e3, (busy if busy > 0 else None), top
+    named_ms = sum(dev_us(e) for e in events if named and named in e.key) / 1e3
+    return wall * 1e3, (busy if busy > 0 else None), top, named_ms
 
 
 def measure(engine, rng, card: str) -> dict:
@@ -537,7 +582,7 @@ def measure(engine, rng, card: str) -> dict:
     out["decode_tok_s"] = sum(len(r.out) - 1 for r in reqs) / window
     out["decode_step_ms"] = window * 1e3 / (len(reqs[0].out) - 1)
 
-    wall, busy, top = device_profile(lambda: decode(64))
+    wall, busy, top, _ = device_profile(lambda: decode(64))
     out["decode_profile"] = {"wall_ms": wall, "device_busy_ms": busy,
                              "top": top}
     print(f"decode, {SLOTS} requests x 64 tokens under the profiler on "
@@ -545,7 +590,7 @@ def measure(engine, rng, card: str) -> dict:
           f"{'not measured' if busy is None else f'{busy:.1f} ms'}; "
           f"top kernels {top}")
     prompt = rng.integers(0, cfg.vocab_size, PROMPT_LENS[-1]).tolist()
-    wall, busy, top = device_profile(lambda: engine.generate(prompt, 1))
+    wall, busy, top, _ = device_profile(lambda: engine.generate(prompt, 1))
     out["prefill_profile"] = {"wall_ms": wall, "device_busy_ms": busy,
                               "top": top}
     print(f"one {bucket(len(prompt))}-bucket prefill under the profiler on "
@@ -607,7 +652,8 @@ def training_phase(card: str) -> dict:
           f"(B={TRAIN_B}, S={TRAIN_S}, attn {res['cfg'].attn_impl}): losses "
           f"{[round(x, 4) for x in losses]}; steady {res['tok_s']:.1f} "
           f"tokens/s over {TRAIN_STEPS - 1} steps ({res['steady_s']:.3f} s); "
-          f"peak memory {peak:.3f} GiB; launches {launches}")
+          f"peak memory {peak:.3f} GiB; launches {launches} ("
+          f"{launches['flash_bwd_fused'] / TRAIN_STEPS:g} fused a step)")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"training losses {losses}")
     if not losses[-1] < losses[0]:
@@ -625,14 +671,18 @@ def training_phase(card: str) -> dict:
     table = markov_table(cfg.vocab_size, device="cuda")
     tokens = markov_batch(torch.Generator(device="cuda").manual_seed(9), table,
                           (TRAIN_B, TRAIN_S + 1))
-    wall, busy, top = device_profile(lambda: step(state, tokens))
+    wall, busy, top, fused_ms = device_profile(lambda: step(state, tokens),
+                                               named="bwd_kv_bf16")
+    share = "not measured" if busy is None else f"{100 * fused_ms / busy:.1f}%"
     print(f"one training step under the profiler on {card}: wall "
           f"{wall:.1f} ms, device busy "
-          f"{'not measured' if busy is None else f'{busy:.1f} ms'}; top "
-          f"kernels {top}")
+          f"{'not measured' if busy is None else f'{busy:.1f} ms'}; the "
+          f"fused backward bwd_kv_bf16 {fused_ms:.3f} ms ({share} of busy); "
+          f"top kernels {top}")
     return {"losses": losses, "tok_s": res["tok_s"], "peak_mem_gib": peak,
             "launches": launches, "profile": {"wall_ms": wall,
                                               "device_busy_ms": busy,
+                                              "fused_bwd_ms": fused_ms,
                                               "top": top}}
 
 
@@ -718,6 +768,10 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         print(f"{name}: nvcc {r['seconds']:.2f} s\n{r['ptxas']}")
+    regs = kv_ptxas(report)
+    print(f"bf16 dk/dv kernels, (registers, spill bytes): {regs}")
+    if any(spill for _, spill in regs.values()):
+        raise AssertionError(f"a bf16 dk/dv kernel spills: {regs}")
 
     rows = kernel_phase(card)
     bwd = backward_phase(card)

@@ -8,9 +8,10 @@ Tolerances: forward, bf16 2e-2 against the plain version in f32 on the same
 inputs (the kernel rounds only its output to bf16); f32 1e-4 (summation
 order). Backward, bf16 2e-2 element by element, of |want| plus the RMS of
 want's row over the last axis (at least 1e-3): p and ds are rounded to bf16
-for their products, as on the TPU, and dq's atomic sum runs in no fixed
-order, while a dropped tile costs most of |want| in each row it touches;
-f32 1e-4 of the largest magnitude, at least 1."""
+for their products, as on the TPU, and the fused pass sums dq (by tile
+in bf16, by element in f32) in no fixed order, while a dropped tile costs
+most of |want| in each row it touches; f32 1e-4 of the largest magnitude,
+at least 1."""
 
 import dataclasses
 
@@ -210,3 +211,79 @@ def test_llama_flash_loss_gives_every_weight_a_gradient(card, remat):
     for a, b in zip(flash, dense):
         assert a is not None and a.abs().sum().item() > 0
         assert _rel_err(a, b) <= TOL[torch.float32]
+
+
+def _bwd_case(card, dtype, B, S, H, KV, D, causal, seed):
+    """Inputs, the plain version's (dq, dk, dv) in f32, and D."""
+    q, k, v, out, lse, dout = _bwd_inputs(card, dtype, B, S, H, KV, D, causal,
+                                          seed)
+    want = att.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                 lse, dout.float(), causal)
+    return q, k, v, dout, lse, att._dvec(out, dout), want
+
+
+#: the bf16 dk/dv kernel's tile edges: S around its 64-query and 128-key
+#: tiles, with a ragged long S; GQA 4:1, MHA and MQA; both head dims. Every
+#: combination causal, and the non-causal ones where S is ragged.
+_EDGE_CASES = [(S, hk, D, True) for S in (63, 64, 65, 127, 128, 129, 2047)
+               for hk in ((16, 4), (8, 8), (8, 1)) for D in (64, 128)] + [
+    (S, hk, D, False) for S in (63, 129, 2047)
+    for hk in ((16, 4), (8, 8), (8, 1)) for D in (64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hk,D,causal", _EDGE_CASES)
+def test_bf16_kv_kernels_at_tile_edges(card, S, hk, D, causal):
+    """The fused pass and the dk/dv pass against the plain version where
+    the tiles end: a key tile that is partly or wholly past S, a query
+    tile that is, and the causal diagonal inside a 128-key tile."""
+    H, KV = hk
+    B = 1 if S > 1000 else 2
+    q, k, v, dout, lse, dvec, want = _bwd_case(card, torch.bfloat16, B, S, H,
+                                               KV, D, causal, S + H + D)
+    fused = att.flash_bwd_fused(q, k, v, dout, lse, dvec, causal)
+    dkv = att.flash_bwd_dkv(q, k, v, dout, lse, dvec, causal)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv", "dk 2-pass", "dv 2-pass"),
+                          (*fused, *dkv), (*want, *want[1:])):
+        assert _row_err(g, w) <= TOL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "two_pass"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_kernels_read_strided_inputs(card, path, dtype):
+    """q/k/v as views of one fused projection (the tensor maps and the
+    f32 kernels read them through their strides): the same gradients."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    qkv = torch.randn((2, 200, 24, 64), generator=gen, device=card).to(dtype)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:20], qkv[:, :, 20:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    dout = torch.randn((2, 200, 16, 64), generator=gen, device=card).to(dtype)
+    out, lse = flash_attention(q, k, v, True, need_lse=True)
+    dvec = att._dvec(out, dout)
+    want = att.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                 lse, dout.float(), True)
+    if path == "fused":
+        got = att.flash_bwd_fused(q, k, v, dout, lse, dvec, True)
+    else:
+        got = (att.flash_bwd_dq(q, k, v, dout, lse, dvec, True),
+               *att.flash_bwd_dkv(q, k, v, dout, lse, dvec, True))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _grad_err(g, w, dtype) <= TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_dk_dv_repeat_bit_for_bit(card, D):
+    """dk and dv stay in registers and are written once (no atomics touch
+    them): two runs give the same bits, in the fused pass and in the dk/dv
+    pass; dq's tile reduce has no fixed order and is not held to this."""
+    q, k, v, dout, lse, dvec, _ = _bwd_case(card, torch.bfloat16, 2, 1000, 8,
+                                            2, D, True, D)
+    for fn in (att.flash_bwd_fused, att.flash_bwd_dkv):
+        first = fn(q, k, v, dout, lse, dvec, True)[-2:]
+        again = fn(q, k, v, dout, lse, dvec, True)[-2:]
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), fn.__name__

@@ -116,12 +116,18 @@ def test_library_names_carry_the_included_headers(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "SOURCES", {
         name: tmp_path / path.name for name, path in _build.SOURCES.items()})
     assert {p.name for p in _build._inputs(_build.SOURCES["flash_bwd"])} == {
-        "flash_bwd.cu", "flash_common.cuh"}
+        "flash_bwd.cu", "flash_common.cuh", "hopper.cuh"}
     before = {name: _build._target(name) for name in _build.SOURCES}
     header = tmp_path / "flash_common.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {name: _build._target(name) for name in _build.SOURCES}
     assert all(before[n] != after[n] for n in ("flash_fwd", "flash_bwd"))
+    # a header only flash_bwd.cu includes renames only its library
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    again = {name: _build._target(name) for name in _build.SOURCES}
+    assert again["flash_bwd"] != after["flash_bwd"]
+    assert again["flash_fwd"] == after["flash_fwd"]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -140,3 +146,26 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_reads_registers_and_spills_of_the_dkv_kernels():
+    """chip_smoke fails a build whose bf16 dk/dv kernels spill: its parser
+    reads ptxas's report per kernel, spill stores and loads summed."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    name = "_ZN45_GLOBAL__N__0_12_flash_bwd_cu_0a11bwd_kv_bf16ILi{}ELb{}EEEvNS_5KvTmaE"
+    report = "\n".join(
+        f"ptxas info    : Function properties for {name.format(d, q)}\n"
+        f"    0 bytes stack frame, {sp} bytes spill stores, {sp} bytes spill "
+        f"loads\nptxas info    : Used {regs} registers, used 3 barriers"
+        for d, q, sp, regs in ((64, 1, 0, 128), (128, 0, 8, 168)))
+    report += ("\nptxas info    : Function properties for _ZN_bwd_dq_bf16ILi64EE"
+               "\n    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
+               "loads\nptxas info    : Used 90 registers")
+    assert smoke.kv_ptxas({"flash_bwd": {"ptxas": report}}) == {
+        "bwd_kv_bf16<64, true>": (128, 0), "bwd_kv_bf16<128, false>": (168, 16)}
+    assert smoke.kv_ptxas({}) == {}
