@@ -6,7 +6,10 @@ them:
 
 1. reads the card's name and power limit (``nvidia-smi``); no card, no run;
 2. builds the kernel libraries from ``nanotpu_torch/ops/csrc`` (one nvcc per
-   source, all started together);
+   source, all started together) and reads the assembler's registers and
+   spills of every bf16 kernel (forward, dq, fused and dk/dv): none may
+   spill, and no note may say that ptxas serialized its wgmmas or ignored
+   a ``setmaxnreg``;
 3. forward kernel phase: the flash-attention forward against its plain
    version (``attention_lse_ref``) on the card, causal GQA 16/8 at head_dim
    64 and 128, S in {32, 130, 2048}, bf16 and f32, with and without lse,
@@ -22,8 +25,7 @@ them:
    outputs that are held against their plain version first; then each
    one's time, its bound, the plain version's and SDPA's backward
    (forward + backward minus forward), and the fused pass against the
-   two-pass pair at S=8192 (B=1, 16/4 heads); the assembler's registers
-   and spills of the bf16 dk/dv kernels, which must not spill;
+   two-pass pair at S=8192 (B=1, 16/4 heads);
 5. serving phase: the serving flagship preset (vocab 32768, dim 1024, 12
    layers, 16/8 heads, bf16) at full width with 8 slots and max_len 2048,
    random weights from a seeded generator, behind the port's HTTP server;
@@ -222,7 +224,7 @@ def kernel_phase(card: str) -> dict:
           f"shape): kernel {ms:.4f} ms, SDPA forward {library_ms:.4f} ms, "
           f"bound {bound_ms:.5f} ms ({bound_by}), err {err:.3g}")
     rows["train"] = {"ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                     "max_abs_err": err}
+                     "bound_by": bound_by, "max_abs_err": err}
     reset_launches()  # comparisons and timings do not count
     return rows
 
@@ -381,22 +383,45 @@ def backward_phase(card: str) -> dict:
     return rows
 
 
-def kv_ptxas(report: dict) -> dict:
-    """{kernel: (registers, spill bytes)} of the bf16 dk/dv kernels
-    (``bwd_kv_bf16<D, kDq>``) from the assembler's report of this build;
-    empty where flash_bwd was not built in this process."""
-    text = report.get("flash_bwd", {}).get("ptxas", "")
-    found = {}
-    for part in text.split("Function properties for ")[1:]:
-        name = part.split(None, 1)[0]
-        m = re.search(r"bwd_kv_bf16ILi(\d+)ELb(\d)E", name)
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                           part)
-        regs = re.search(r"Used (\d+) registers", part)
-        if m and spills and regs:
-            found[f"bwd_kv_bf16<{m[1]}, {'true' if m[2] == '1' else 'false'}>"] = (
-                int(regs[1]), int(spills[1]) + int(spills[2]))
-    return found
+#: the bf16 kernels in the assembler's report, by mangled name: the
+#: forward's template arguments are D and its consumer warpgroups, the
+#: dk/dv kernel's D and whether it computes dq (the fused pass)
+BF16_KERNELS = (
+    (re.compile(r"flash_fwd_bf16ILi(\d+)ELi(\d+)E"),
+     lambda d, w: f"flash_fwd_bf16<{d}, {w}>"),
+    (re.compile(r"bwd_dq_bf16ILi(\d+)E"), lambda d: f"bwd_dq_bf16<{d}>"),
+    (re.compile(r"bwd_kv_bf16ILi(\d+)ELb(\d)E"),
+     lambda d, dq: f"bwd_kv_bf16<{d}, {'true' if dq == '1' else 'false'}>"),
+)
+#: ptxas notes that a wgmma pipeline lost its overlap (C7510-C7519: wgmma
+#: serialized) or that a setmaxnreg was ignored (C7507); only the bf16
+#: kernels use either
+PTXAS_NOTE = re.compile(r"\(C75(07|1\d)\)")
+
+
+def bf16_ptxas(report: dict) -> tuple:
+    """({kernel: (registers, spill bytes)}, [notes]) of the bf16 kernels
+    (``flash_fwd_bf16<D, kWgs>``, ``bwd_dq_bf16<D>``,
+    ``bwd_kv_bf16<D, kDq>``) from the assembler's report of this build,
+    spill stores and loads summed, and every wgmma-serialization or
+    ignored-setmaxnreg note in it; empty where no library was built in
+    this process."""
+    found, notes = {}, []
+    for lib in report.values():
+        text = lib.get("ptxas", "")
+        notes += [line.strip() for line in text.splitlines()
+                  if PTXAS_NOTE.search(line)]
+        for part in text.split("Function properties for ")[1:]:
+            name = part.split(None, 1)[0]
+            spills = re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+            regs = re.search(r"Used (\d+) registers", part)
+            for pattern, label in BF16_KERNELS:
+                m = pattern.search(name)
+                if m and spills and regs:
+                    found[label(*m.groups())] = (
+                        int(regs[1]), int(spills[1]) + int(spills[2]))
+    return found, notes
 
 
 def bucket(n: int) -> int:
@@ -768,10 +793,13 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         print(f"{name}: nvcc {r['seconds']:.2f} s\n{r['ptxas']}")
-    regs = kv_ptxas(report)
-    print(f"bf16 dk/dv kernels, (registers, spill bytes): {regs}")
+    regs, notes = bf16_ptxas(report)
+    print(f"bf16 kernels, (registers, spill bytes): {regs}")
     if any(spill for _, spill in regs.values()):
-        raise AssertionError(f"a bf16 dk/dv kernel spills: {regs}")
+        raise AssertionError(f"a bf16 kernel spills: {regs}")
+    if notes:
+        raise AssertionError(f"ptxas serialized wgmma or ignored setmaxnreg: "
+                             f"{notes}")
 
     rows = kernel_phase(card)
     bwd = backward_phase(card)
@@ -804,6 +832,8 @@ def main() -> None:
         "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"],
         "library_ms": at["library_ms"],
+        # the training flagship's shape (B=8, 16/4 heads, with lse)
+        **{f"train_{k}": v for k, v in rows["train"].items()},
     }]
     for name, row in bwd.items():
         kernels.append({

@@ -14,10 +14,10 @@
 // D = rowsum(dO * O) - g_lse computed by the wrapper as a torch reduction,
 // as the JAX code computes it outside its kernels; dq = scale * ds k,
 // dk = scale * ds^T q, dv = p^T dO; p and ds are rounded to bf16 for their
-// products in bf16, as the TPU kernels do. bwd_dq_bf16 and the f32 kernels
-// go through one routine per pair, bwd_pair; bwd_kv_bf16 applies the same
-// arithmetic to whole accumulator tiles (in base 2: exp2(s scale log2(e) -
-// lse log2(e))).
+// products in bf16, as the TPU kernels do. The f32 kernels go through one
+// routine per pair, bwd_pair; the bf16 kernels apply the same arithmetic to
+// whole accumulator tiles (in base 2: exp2(s scale log2(e) - lse
+// log2(e))).
 //
 // Layouts are nanotpu's: q, dO, dq [B, S, H, D]; k, v, dk, dv [B, S, KV, D];
 // lse and D [B, H, S] f32. q, k, v are read through strides (the head-dim
@@ -67,10 +67,23 @@
 //     rows through their lse once a column. exp2 on the special-function
 //     unit (ex2.approx.ftz).
 //
-// bwd_dq_bf16 (mma.sync m16n8k16 tiles, cp.async double buffering) and the
-// f32 kernels (FMA tiles on the CUDA cores, so that f32 stays f32 end to
-// end) keep their first design: a block of bwd_dq owns 64 query rows of one
-// (batch, head) and loops over the causally relevant key tiles.
+// bwd_dq_bf16 (dq of the two-pass backward) is the forward's shape, the
+// persistent Q-stationary skeleton of flash_common.cuh: a work item is 128
+// query rows of one (batch, head) in two consumer warpgroups; a producer
+// thread loads the item's q and dO and streams (K, V) tiles (128 keys at
+// D = 64, 64 at D = 128) by TMA into a 3-stage ring. Per tile a warpgroup
+// runs S = Q K^T and dP = dO V^T (wgmma, both operands K-major in shared
+// memory), p = exp2(s scale log2(e) - lse log2(e)) masked only on diagonal
+// and ragged tiles, dS = p (dP - D) rounded to bf16 straight into the A
+// fragment of dQ += dS K (K read MN-major from the same stage); the two
+// warpgroups issue S and dP in turn (ping-pong). lse and D load once a row
+// by plain loads. dq stays in registers and is scaled and written once: no
+// atomics, the same bits on every run.
+//
+// The f32 kernels keep FMA tiles on the CUDA cores, so that f32 stays f32
+// end to end: a block of bwd_dq_f32 owns 64 query rows of one (batch, head)
+// and loops over the causally relevant key tiles; bwd_kv_f32 owns 64 keys
+// and adds dq with atomicAdd.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -132,80 +145,6 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
     dst[i] = row0 + i < S ? src[row0 + i] : 0.f;
 }
 
-// ---- bf16 dq of the two-pass backward: mma.sync tiles --------------------
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
-
-template <int D> struct Pitch {
-  static constexpr int P = D + 8;             // bf16 per [64, D] row
-  static constexpr int tile = kTile * P;      // bf16 per [64, D] tile
-};
-
-// Issue the copies of 64 rows of a strided bf16 [S, D] matrix, from row0
-// on, into a [64, D] shared tile (rows past S zero).
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long row_stride, int row0,
-                                           int S) {
-  constexpr int P = Pitch<D>::P;
-  for (int i = threadIdx.x; i < kTile * D / 8; i += kMmaThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = row0 + r;
-    const bool valid = s < S;
-    const long long row = valid ? s : 0;
-    cp_async_16(dst + r * P + c, src + row * row_stride + c, valid);
-  }
-}
-
-// c[nt] = a . B^T for 8 column tiles of 8 rows of a [64, D] shared tile:
-// the 16 x 64 product of 16 rows (as A fragments) with all 64 rows of `B`.
-template <int D>
-__device__ __forceinline__ void rows_dot_tile(float (&c)[kTile / 8][4],
-                                              const uint32_t (&f)[D / 16][4],
-                                              const __nv_bfloat16* B, int g,
-                                              int t) {
-  constexpr int P = Pitch<D>::P;
-#pragma unroll
-  for (int nt = 0; nt < kTile / 8; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-    const __nv_bfloat16* row = B + (nt * 8 + g) * P + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(row + kk * 16);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(row + kk * 16 + 8);
-      mma_bf16(c[nt], f[kk], b0, b1);
-    }
-  }
-}
-
-// acc[16 rows, D] += X . T where X [16, 64] is given by its C fragments x
-// (column tiles 2j, 2j+1 of x form the A fragment of columns 16j..16j+15)
-// and T is a [64, D] shared tile, read through ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void c_times_tile(float (&acc)[D / 8][4],
-                                             const float (&x)[kTile / 8][4],
-                                             const __nv_bfloat16* T,
-                                             int lane) {
-  constexpr int P = Pitch<D>::P;
-  const int mi = lane >> 3;  // which 8x8 matrix this lane addresses
-#pragma unroll
-  for (int j = 0; j < kTile / 16; ++j) {
-    const uint32_t xa[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
-                            pack_bf16(x[2 * j][2], x[2 * j][3]),
-                            pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
-                            pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
-    const __nv_bfloat16* trow =
-        T + (j * 16 + (mi & 1) * 8 + (lane & 7)) * P + (mi >> 1) * 8;
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t tb[4];
-      ldmatrix_x4_trans(tb, trow + dp * 16);
-      mma_bf16(acc[2 * dp], xa, tb[0], tb[1]);
-      mma_bf16(acc[2 * dp + 1], xa, tb[2], tb[3]);
-    }
-  }
-}
-
 // ---- bf16 dk/dv, and dq in the fused pass: wgmma on TMA-fed tiles --------
 
 constexpr int kKeyTile = 128;    // keys a block
@@ -214,7 +153,6 @@ constexpr int kConsumers = 256;  // two key warpgroups, 64 keys each
 __host__ __device__ constexpr int kv_threads(bool dq) {
   return kConsumers + (dq ? 256 : 128);
 }
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct KvTma {
   Args a;
@@ -578,100 +516,175 @@ cudaError_t launch_kv_bf16(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D> struct DqSmem {
-  // two stages of (sK, sV)
-  static constexpr size_t bytes = 4 * Pitch<D>::tile * sizeof(__nv_bfloat16);
+// ---- bf16 dq of the two-pass backward: wgmma on TMA-fed tiles ----------
+
+// tiles of 128 keys at D = 64, 64 at D = 128 (registers); 3 stages
+template <int D>
+using DqLayout = QLayout<D, D == 64 ? 128 : 64, 3, 2, 2>;
+
+struct DqTma {
+  Args a;
+  int B;
+  // q, dO, dq [B, S, H, D] (64-row boxes), k, v [B, S, KV, D] (a key
+  // tile's rows a box), all 64 columns a box
+  CUtensorMap q, dout, k, v, dq;
 };
 
-// 64 query rows of one (batch, head): dq over the causally relevant keys.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dq_bf16(const Args a) {
-  constexpr int TILE = Pitch<D>::tile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+__global__ void __launch_bounds__(DqLayout<D>::threads, 1)
+    bwd_dq_bf16(const __grid_constant__ DqTma t) {
+  using L = DqLayout<D>;
+  constexpr int N = L::keys;
+  const Args& a = t.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::off_bar);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + L::NS;
+  uint64_t* rows_full = bars + 2 * L::NS;
+  uint64_t* rows_empty = rows_full + 2;
+  init_ring<L>(bars);
 
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const int kvh = h / (a.H / a.KV);
-  const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int q0 = qb * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  int n_tiles = (a.S + kTile - 1) / kTile;
-  if (a.causal) n_tiles = min(n_tiles, qb + 1);
-
-  const __nv_bfloat16* Q = rows_of<__nv_bfloat16>(a.q, a.q_stride, b, h);
-  const __nv_bfloat16* dO = rows_of<__nv_bfloat16>(a.dout, a.do_stride, b, h);
-  const __nv_bfloat16* K = rows_of<__nv_bfloat16>(a.k, a.k_stride, b, kvh);
-  const __nv_bfloat16* V = rows_of<__nv_bfloat16>(a.v, a.v_stride, b, kvh);
-
-  // this warp's 16 query rows of q and dO as A fragments, read once
-  uint32_t qf[D / 16][4], of[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = load_pair(Q, a.q_stride[1], rows[0], c, a.S);
-    qf[kk][1] = load_pair(Q, a.q_stride[1], rows[1], c, a.S);
-    qf[kk][2] = load_pair(Q, a.q_stride[1], rows[0], c + 8, a.S);
-    qf[kk][3] = load_pair(Q, a.q_stride[1], rows[1], c + 8, a.S);
-    of[kk][0] = load_pair(dO, a.do_stride[1], rows[0], c, a.S);
-    of[kk][1] = load_pair(dO, a.do_stride[1], rows[1], c, a.S);
-    of[kk][2] = load_pair(dO, a.do_stride[1], rows[0], c + 8, a.S);
-    of[kk][3] = load_pair(dO, a.do_stride[1], rows[1], c + 8, a.S);
+  // registers: 65536 >= 2 x 128 x 240 + 128 x 24
+  if (threadIdx.x >= 128 * L::wgs) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * L::wgs) {
+      const CUtensorMap* rows[2] = {&t.q, &t.dout};
+      produce<L>(smem, bars, t.B, a.H, a.KV, a.S, a.causal, rows, &t.k, &t.v);
+    }
+    return;
   }
-  const long long bh = static_cast<long long>(blockIdx.x) * a.S;
-  float lse[2], dvec[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse[i] = rows[i] < a.S ? a.lse[bh + rows[i]] : 0.f;
-    dvec[i] = rows[i] < a.S ? a.dvec[bh + rows[i]] : 0.f;
-  }
+  setmaxnreg_inc<240>();
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128;
+  const int warp = wt / 32, g = (wt % 32) / 4, tq = wt % 4;
+  const uint32_t stages = smem_u32(smem + L::off_stage);
+  const float scale2 = a.scale * kLog2e;
 
-  auto issue = [&](int kt) {
-    __nv_bfloat16* st = stages + (kt & 1) * 2 * TILE;
-    stage_rows<D>(st, K, a.k_stride[1], kt * kTile, a.S);
-    stage_rows<D>(st + TILE, V, a.v_stride[1], kt * kTile, a.S);
-  };
-  issue(0);
-  cp_async_commit();
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) issue(kt + 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const __nv_bfloat16* sK = stages + (kt & 1) * 2 * TILE;
-    const __nv_bfloat16* sV = sK + TILE;
+  // Ping-pong, as in the forward: a warpgroup issues S and dP between a
+  // wait on its own named barrier and an arrive on the other's (on every
+  // tile, also one it skips), so the two take the tensor cores in turn.
+  // Warpgroup 1 lets warpgroup 0 go first.
+  if (wg == 1) named_arrive(kTurnBar, 256);
+  int done = 0;  // key tiles of the block's earlier items: the ring's count
+  for (int it = 0; QWork::exists(it, t.B, a.H, a.S, L::rows); ++it) {
+    const QWork w(it, t.B, a.H, a.KV, a.S, a.causal, N, L::rows);
+    const int buf = it % L::row_bufs;
+    const int row0 = w.q0 + 64 * wg;  // this warpgroup's first row
+    unsigned char* q_rows = smem + buf * L::rows_buf + wg * L::rows_tile;
+    const uint32_t sq = smem_u32(q_rows);
+    const uint32_t sdo = sq + L::wgs * L::rows_tile;
 
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    rows_dot_tile<D>(s, qf, sK, g, t);
-    rows_dot_tile<D>(dp, of, sV, g, t);
+    // this thread's two rows (i / 2 % 2 of an accumulator element): lse in
+    // base-2 units, +inf where p must be 0 (a NEG_INF row, a row past S),
+    // and D. Plain loads: a ragged S leaves these rows without the 16-byte
+    // alignment a bulk copy needs.
+    const long long bh = static_cast<long long>(w.b * a.H + w.h) * a.S;
+    float lse2[2], dvec[2];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * warp + g + 8 * r;
+      const float lse = row < a.S ? a.lse[bh + row] : kNegInf;
+      lse2[r] = lse == kNegInf ? INFINITY : lse * kLog2e;
+      dvec[r] = row < a.S ? a.dvec[bh + row] : 0.f;
+    }
+
+    float dq[D / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const Pair pr = bwd_pair(s[nt][e], dp[nt][e], lse[i], dvec[i], rows[i],
-                                 kt * kTile + nt * 8 + 2 * t + (e & 1), a);
-        dp[nt][e] = pr.ds;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(&rows_full[buf], (it / L::row_bufs) & 1);
+    for (int j = 0; j < w.n_tiles; ++j) {
+      const int gj = done + j, st = gj % L::NS, k0 = j * N;
+      const uint32_t sk = stages + st * 2 * L::kv_tile;
+      const uint32_t sv = sk + L::kv_tile;
+      mbar_wait(&full[st], (gj / L::NS) & 1);
+      named_sync(kTurnBar + wg, 256);
+      // a tile wholly past this warpgroup's causal diagonal adds nothing
+      const bool skip = a.causal && k0 > row0 + 63;
+      if (skip) named_arrive(kTurnBar + 1 - wg, 256);
+      if (!skip) {
+        // S = Q K^T and dP = dO V^T, 64 rows x N keys
+        float s[N / 2], dp[N / 2];
+        wgmma_fence();
+        issue_scores<L>(s, sq, sk);
+        issue_scores<L>(dp, sdo, sv);
+        wgmma_commit();
+        named_arrive(kTurnBar + 1 - wg, 256);
+        wgmma_wait();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // p = exp2(s scale log2(e) - lse log2(e)), ds = p (dp - D). Element
+        // i: row 16 warp + g + 8 (i / 2 % 2), key 8 (i / 4) + 2 tq + i % 2
+        // of the tile. Only a tile that crosses the causal diagonal tests
+        // the causal order, only the ragged last tile the keys' bound.
+        const bool masked = (a.causal && k0 + N - 1 > row0) || k0 + N > a.S;
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          float p = exp2_approx(fmaf(s[i], scale2, -lse2[r]));
+          if (masked) {
+            const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+            const int row = row0 + 16 * warp + g + 8 * r;
+            if (key >= a.S || (a.causal && key > row)) p = 0.f;
+          }
+          dp[i] = p * (dp[i] - dvec[r]);
+        }
+        // dS as bf16 A fragments: k16 step kk is accumulator columns 16 kk ..
+        uint32_t da[N / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+          for (int mm = 0; mm < 4; ++mm)
+            da[kk][mm] =
+                pack_bf16(dp[8 * kk + 2 * mm], dp[8 * kk + 2 * mm + 1]);
+
+        // dQ += dS K, K read MN-major from the stage
+        wgmma_fence();
+        issue_pv<L, D>(dq, da, sk);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) fence_regs(da[kk]);
       }
-    c_times_tile<D>(acc, dp, sK, lane);  // dq += ds K
-    __syncthreads();  // this stage's reads are done before it is refilled
+      mbar_arrive(&empty[st]);  // this thread is done with the stage
+    }
+    done += w.n_tiles;
+    const float f[2] = {a.scale, a.scale};
+    store_rows<D>(dq, f, q_rows, &t.dq, w.h, row0, w.b, a.S,
+                  &rows_empty[buf]);
   }
+  if (wg == 0) named_sync(kTurnBar, 256);  // warpgroup 1's last arrive
+}
 
-  __nv_bfloat16* dQ = rows_of<__nv_bfloat16>(a.dq, a.dq_stride, b, h);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= a.S) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dQ + rows[i] * a.dq_stride[1] + j * 8 + 2 * t) =
-          pack_bf16(acc[j][2 * i] * a.scale, acc[j][2 * i + 1] * a.scale);
-  }
+template <int D>
+cudaError_t launch_dq_bf16(const Args& a, int B, cudaStream_t stream) {
+  using L = DqLayout<D>;
+  DqTma t;
+  t.a = a;
+  t.B = B;
+  const bool ok =
+      encode_rows_map(&t.q, a.q, true, B, a.S, a.H, D, a.q_stride[0],
+                      a.q_stride[1], a.q_stride[2], 64, 64) &&
+      encode_rows_map(&t.dout, a.dout, true, B, a.S, a.H, D, a.do_stride[0],
+                      a.do_stride[1], a.do_stride[2], 64, 64) &&
+      encode_rows_map(&t.k, a.k, true, B, a.S, a.KV, D, a.k_stride[0],
+                      a.k_stride[1], a.k_stride[2], 64, L::keys) &&
+      encode_rows_map(&t.v, a.v, true, B, a.S, a.KV, D, a.v_stride[0],
+                      a.v_stride[1], a.v_stride[2], 64, L::keys) &&
+      encode_rows_map(&t.dq, a.dq, true, B, a.S, a.H, D, a.dq_stride[0],
+                      a.dq_stride[1], a.dq_stride[2], 64, 64);
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = bwd_dq_bf16<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::alloc));
+  if (err != cudaSuccess) return err;
+  const int items = B * a.H * ((a.S + L::rows - 1) / L::rows);
+  kernel<<<persistent_blocks(items), L::threads, L::alloc, stream>>>(t);
+  return cudaGetLastError();
 }
 
 // ---- f32: CUDA-core FMA tiles --------------------------------------------
@@ -953,9 +966,7 @@ cudaError_t run(int which, int dtype, const Args& a, int B, cudaStream_t st) {
   if (dtype == 1) {
     if (which == kFused) return launch_kv_bf16<D, true>(a, B, st);
     if (which == kDkv) return launch_kv_bf16<D, false>(a, B, st);
-    if (which == kDqOnly)
-      return launch(bwd_dq_bf16<D>, kMmaThreads, DqSmem<D>::bytes, q_grid, a,
-                    st);
+    if (which == kDqOnly) return launch_dq_bf16<D>(a, B, st);
   } else if (dtype == 0) {
     if (which == kFused)
       return launch(bwd_kv_f32<D, true>, kFmaThreads, FmaKvSmem<D>::bytes,

@@ -13,31 +13,47 @@
 // wrapper passes (the head-dim stride must be 1), so no transpose copy
 // exists. bf16 or f32 in, f32 accumulation, output in the input type.
 //
-// What bounds it on an H100 SXM: at the flagship's longest prefill bucket
-// (S=2048, H=16, KV=8, D=64, causal) the work is 2*S^2*D*H ~ 8.6 GFLOP,
-// ~8.7 us at the 989 TFLOP/s bf16 tensor-core peak; q, k, v and o are
-// ~12.6 MB, ~3.8 us at 3.35 TB/s. So the kernel is compute-bound at long
-// buckets and launch-bound at short ones.
+// What bounds it on an H100 SXM: at the training flagship's shape (B=8,
+// S=2048, H=16, KV=4, D=64, causal) the two products over the causal half
+// are ~6.9e10 FLOP, ~0.07 ms at the 989 TFLOP/s bf16 tensor-core peak;
+// q, k, v and o are ~42 MB, ~0.013 ms at 3.35 TB/s. So the kernel is
+// bound by the tensor cores' rate, reached only through wgmma, and at
+// D = 64 nearly as much by the exponentials: a 128-key tile costs the
+// special-function units about as many cycles as its two products cost the
+// tensor cores.
 //
-// This first design is simple and correct rather than fast. Both kernels
-// give a block 64 query rows of one (batch, head) and loop over 64-key tiles
-// staged in shared memory:
-//   * bf16 (the serving path): four warps of 16 query rows each run both
-//     products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-//     accumulate); q stays in registers, p is rounded to bf16 for the second
-//     product as the TPU kernel does, v reaches the tensor cores through
-//     ldmatrix.trans, and the next K/V tile streams in with cp.async while
-//     the current one is multiplied (two stages);
-//   * f32: FMA tiles on the CUDA cores (16 scores and 4*D/16 output
-//     elements per thread), one tile at a time, so f32 stays f32 end to end.
-// wgmma, TMA and a producer/consumer pipeline are left to a later change.
+// bf16 (serving and training), built for that on the persistent
+// Q-stationary skeleton of flash_common.cuh: a work item is 64 query rows
+// a consumer warpgroup of one (batch, head); a producer thread loads the
+// item's q and streams (K, V) tiles of 128 keys by TMA into a 3-stage ring.
+// Per tile a warpgroup runs
+//   * S = Q K^T: wgmma with both operands K-major in shared memory;
+//   * the online softmax in base 2 (ex2.approx.ftz, scale log2(e) folded
+//     into one FMA), masks only in the steps of an item's last key tiles,
+//     which alone can cross the diagonal or hold keys past S;
+//   * O += P V: P rounded to bf16, as the TPU kernel does, straight from
+//     the score accumulator into the A fragment (register for register),
+//     V read MN-major (transposed) from the same stage; O is rescaled
+//     only after the previous product has retired.
+// Tile j's scores are issued together with tile j-1's P V (ptxas waits for
+// both before the softmax, whatever the source order), and the warpgroups
+// take the tensor cores in turn (ping-pong on named barriers), so one's
+// softmax runs under the others' products. At D = 64 an item has
+// three warpgroups (192 rows) when there are items enough for two rounds
+// of the grid, else two; at D = 128 always two (registers). The output
+// goes out through the warpgroup's own q rows and a TMA store; lse by
+// plain stores.
+//
+// f32 keeps FMA tiles on the CUDA cores (16 scores and 4*D/16 output
+// elements per thread), a block of 64 query rows, one 64-key tile at a
+// time, so f32 stays f32 end to end (TF32 would not meet f32's 1e-4
+// tolerance).
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBlockM = 64;  // query rows per block
-constexpr int kBlockN = 64;  // keys per tile
 
 struct Args {
   const void* q;
@@ -50,6 +66,254 @@ struct Args {
   int causal;
   float scale;
 };
+
+// ---- bf16: wgmma on TMA-fed tiles ---------------------------------------
+
+constexpr int kFwdKeys = 128;  // keys a tile
+// 3 stages; q double-buffered at D = 64, single at D = 128 (shared memory)
+template <int D, int kWgs>
+using FwdLayout = QLayout<D, kFwdKeys, 3, 1, kWgs, D == 64 ? 2 : 1>;
+
+struct FwdTma {
+  Args a;
+  int B;
+  // q, o [B, S, H, D] (64-row boxes), k, v [B, S, KV, D] (128-row boxes),
+  // all 64 columns a box
+  CUtensorMap q, k, v, o;
+};
+
+// One tile's online softmax in place, in base 2: the scores s (64 rows x N
+// keys, element i of row 16 warp + g + 8 (i / 2 % 2) and key k0 + 8 (i / 4)
+// + 2 tq + i % 2) become p = exp2(s scale log2(e) - m); the rows' running
+// max m and this thread's share of their denominators l move on, and corr
+// is the factor the accumulator takes before this tile's P V is added.
+// kMask: the tile may hold keys past S or past a row's causal diagonal.
+template <int N, bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int k0, int row0, const Args& a,
+                                             float scale2) {
+  const int wt = threadIdx.x % 128, warp = wt / 32, g = (wt % 32) / 4;
+  const int tq = wt % 4;
+  if constexpr (kMask) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+      const int row = row0 + 16 * warp + g + 8 * ((i >> 1) & 1);
+      if (key >= a.S || (a.causal && key > row)) s[i] = -INFINITY;
+    }
+  }
+  // Row r's elements are 4 q + 2 r + {0, 1}; its max and sum run in four
+  // independent chains (q % 4), so that a warp is not held by one long
+  // dependent chain of 32.
+  float mx[2][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    mx[0][q] = fmaxf(s[4 * q], s[4 * q + 1]);
+    mx[1][q] = fmaxf(s[4 * q + 2], s[4 * q + 3]);
+  }
+#pragma unroll
+  for (int q = 4; q < N / 8; ++q)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r][q & 3] = fmaxf(mx[r][q & 3],
+                           fmaxf(s[4 * q + 2 * r], s[4 * q + 2 * r + 1]));
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
+    float row_max = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+    const float m_new = fmaxf(m[r], row_max * scale2);
+    // a row with no valid key yet keeps m = -inf and takes p against 0
+    base[r] = m_new == -INFINITY ? 0.f : m_new;
+    corr[r] = exp2_approx(m[r] - base[r]);
+    m[r] = m_new;
+  }
+  float sum[2][4];
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = 4 * q + 2 * r;
+      s[i] = exp2_approx(fmaf(s[i], scale2, -base[r]));
+      s[i + 1] = exp2_approx(fmaf(s[i + 1], scale2, -base[r]));
+      const float pair = s[i] + s[i + 1];
+      sum[r][q & 3] = q < 4 ? pair : sum[r][q & 3] + pair;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * corr[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+}
+
+template <int D, int kWgs>
+__global__ void __launch_bounds__(128 * (kWgs + 1), 1)
+    flash_fwd_bf16(const __grid_constant__ FwdTma t) {
+  using L = FwdLayout<D, kWgs>;
+  constexpr int N = kFwdKeys;
+  const Args& a = t.a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::off_bar);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + L::NS;
+  uint64_t* rows_full = bars + 2 * L::NS;
+  uint64_t* rows_empty = rows_full + 2;
+  init_ring<L>(bars);
+
+  // registers: 65536 >= 2 x 128 x 240 + 128 x 24 = 3 x 128 x 160 + 128 x 24
+  if (threadIdx.x >= 128 * kWgs) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * kWgs) {
+      const CUtensorMap* rows[1] = {&t.q};
+      produce<L>(smem, bars, t.B, a.H, a.KV, a.S, a.causal, rows, &t.k, &t.v);
+    }
+    return;
+  }
+  setmaxnreg_inc<kWgs == 2 ? 240 : 160>();
+
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128;
+  const int warp = wt / 32, g = (wt % 32) / 4, tq = wt % 4;
+  const uint32_t stages = smem_u32(smem + L::off_stage);
+  const float scale2 = a.scale * kLog2e;
+
+  // Ping-pong: each warpgroup issues its products between a wait on its own
+  // named barrier (kTurnBar + wg) and an arrive on the next one's, so the
+  // warpgroups take the tensor cores in turn and one's softmax runs under
+  // the others' products. The last lets warpgroup 0 go first.
+  auto my_turn = [&] { named_sync(kTurnBar + wg, 256); };
+  auto your_turn = [&] { named_arrive(kTurnBar + (wg + 1) % kWgs, 256); };
+  if (wg == kWgs - 1) named_arrive(kTurnBar, 256);
+
+  int done = 0;  // key tiles of the block's earlier items: the ring's count
+  for (int it = 0; QWork::exists(it, t.B, a.H, a.S, L::rows); ++it) {
+    const QWork w(it, t.B, a.H, a.KV, a.S, a.causal, N, L::rows);
+    const int buf = it % L::row_bufs;
+    const int row0 = w.q0 + 64 * wg;  // this warpgroup's first row
+    unsigned char* q_rows = smem + buf * L::rows_buf + wg * L::rows_tile;
+    const uint32_t sq = smem_u32(q_rows);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // per row (i / 2 % 2 of an accumulator element): the running max in
+    // base-2 units, this thread's share of the denominator, the rescale
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+    float s[N / 2];
+    uint32_t pa[N / 16][4];
+
+    // Tile j's scores are issued with tile j-1's P V, which takes tile
+    // j-1's rescale first; stage j-1 goes back to the producer once its V
+    // has been read. The first step has no P V, the last no scores. Only
+    // the item's last kEdge key tiles can cross the causal diagonal or hold
+    // keys past S, so only their steps mask: no test in the steady loop.
+    auto step = [&](int j, auto with_scores, auto with_pv, auto with_mask) {
+      constexpr bool kScores = decltype(with_scores)::value;
+      constexpr bool kPv = decltype(with_pv)::value;
+      const int gj = done + j;  // the tile's place in the ring
+      if constexpr (kScores) mbar_wait(&full[gj % L::NS], (gj / L::NS) & 1);
+      my_turn();
+      if constexpr (kScores) {
+        wgmma_fence();
+        issue_scores<L>(s, sq, stages + (gj % L::NS) * 2 * L::kv_tile);
+        wgmma_commit();
+      }
+      if constexpr (kPv) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        wgmma_fence();
+        issue_pv<L, D>(o, pa, stages + ((gj - 1) % L::NS) * 2 * L::kv_tile +
+                                  L::kv_tile);
+        wgmma_commit();
+      }
+      your_turn();
+      if constexpr (kScores) {
+        wgmma_wait<kPv ? 1 : 0>();
+        fence_regs(s);
+        softmax_tile<N, decltype(with_mask)::value>(s, m, l, corr, j * N,
+                                                   row0, a, scale2);
+      }
+      if constexpr (kPv) {
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) fence_regs(pa[kk]);
+        mbar_arrive(&empty[(gj - 1) % L::NS]);  // done with tile j-1
+      }
+      if constexpr (kScores) {
+        // P as bf16 A fragments: k16 step kk is accumulator columns 16 kk ..
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+          for (int mm = 0; mm < 4; ++mm)
+            pa[kk][mm] = pack_bf16(s[8 * kk + 2 * mm], s[8 * kk + 2 * mm + 1]);
+      }
+    };
+    using T = std::true_type;
+    using F = std::false_type;
+    constexpr int kEdge = (L::rows + N - 1) / N;
+    const int n = w.n_tiles, first_masked = max(n - kEdge, 0);
+    mbar_wait(&rows_full[buf], (it / L::row_bufs) & 1);
+    if (first_masked == 0) step(0, T{}, F{}, T{});
+    else step(0, T{}, F{}, F{});
+    for (int j = 1; j < first_masked; ++j) step(j, T{}, T{}, F{});
+    for (int j = max(first_masked, 1); j < n; ++j) step(j, T{}, T{}, T{});
+    step(n, F{}, T{}, F{});
+    done += n;
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    }
+    store_rows<D>(o, inv, q_rows, &t.o, w.h, row0, w.b, a.S, &rows_empty[buf]);
+    if (a.lse != nullptr && tq == 0) {
+      float* lse = a.lse + static_cast<long long>(w.b * a.H + w.h) * a.S;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 16 * warp + g + 8 * r;
+        if (row < a.S)  // natural log: m ln(2) + log(l)
+          lse[row] = l[r] > 0.f ? m[r] * 0.6931471805599453f + logf(l[r])
+                                : kNegInf;
+      }
+    }
+  }
+  // the last warpgroup's last arrive
+  if (wg == 0) named_sync(kTurnBar, 256);
+}
+
+template <int D, int kWgs>
+cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
+  using L = FwdLayout<D, kWgs>;
+  FwdTma t;
+  t.a = a;
+  t.B = B;
+  const bool ok =
+      encode_rows_map(&t.q, a.q, true, B, a.S, a.H, D, a.q_stride[0],
+                      a.q_stride[1], a.q_stride[2], 64, 64) &&
+      encode_rows_map(&t.k, a.k, true, B, a.S, a.KV, D, a.k_stride[0],
+                      a.k_stride[1], a.k_stride[2], 64, kFwdKeys) &&
+      encode_rows_map(&t.v, a.v, true, B, a.S, a.KV, D, a.v_stride[0],
+                      a.v_stride[1], a.v_stride[2], 64, kFwdKeys) &&
+      encode_rows_map(&t.o, a.o, true, B, a.S, a.H, D, a.o_stride[0],
+                      a.o_stride[1], a.o_stride[2], 64, 64);
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_bf16<D, kWgs>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::alloc));
+  if (err != cudaSuccess) return err;
+  const int items = B * a.H * ((a.S + L::rows - 1) / L::rows);
+  kernel<<<persistent_blocks(items), L::threads, L::alloc, stream>>>(t);
+  return cudaGetLastError();
+}
+
+// ---- f32: CUDA-core FMA tiles --------------------------------------------
+
+constexpr int kBlockM = 64;  // query rows per block (f32)
+constexpr int kBlockN = 64;  // keys per tile
 
 // Where a block's (batch, head, first query row) lie, and how many key tiles
 // it visits. The heaviest causal tiles go first: they start while the light
@@ -86,173 +350,6 @@ struct Rescale {
 __device__ __forceinline__ float lse_of(float m, float l) {
   return l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : kNegInf;
 }
-
-// ---- bf16: tensor cores --------------------------------------------------
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
-
-// Two stages of (K tile, V tile): the next tile's copy is in flight while
-// the current one is multiplied.
-template <int D> struct MmaSmem {
-  static constexpr int pitch = D + 8;  // bf16 per row: conflict-free, 16B rows
-  static constexpr int stage = 2 * kBlockN * pitch;  // bf16 per stage
-  static constexpr size_t bytes = 2 * stage * sizeof(__nv_bfloat16);
-};
-
-// Issue the copies of key tile kt (K and V, rows past S zero) into `stage`.
-template <int D>
-__device__ __forceinline__ void stage_kv(__nv_bfloat16* stage,
-                                         const __nv_bfloat16* K,
-                                         const __nv_bfloat16* V, const Args& a,
-                                         int kt) {
-  constexpr int P = MmaSmem<D>::pitch;
-  for (int i = threadIdx.x; i < kBlockN * D / 8; i += kMmaThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = kt * kBlockN + r;
-    const bool valid = s < a.S;
-    const long long row = valid ? s : 0;
-    cp_async_16(stage + r * P + c, K + row * a.k_stride[1] + c, valid);
-    cp_async_16(stage + (kBlockN + r) * P + c, V + row * a.v_stride[1] + c,
-                valid);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16(const Args a) {
-  using Smem = MmaSmem<D>;
-  constexpr int P = Smem::pitch;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  const Tile tile(a);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rows[2] = {tile.q0 + warp * 16 + g, tile.q0 + warp * 16 + g + 8};
-
-  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(a.q) +
-                           tile.b * a.q_stride[0] + tile.h * a.q_stride[2];
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(a.k) +
-                           tile.b * a.k_stride[0] + tile.kvh * a.k_stride[2];
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(a.v) +
-                           tile.b * a.v_stride[0] + tile.kvh * a.v_stride[2];
-
-  // this warp's 16 query rows as A fragments, read once from global memory
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = load_pair(Q, a.q_stride[1], rows[0], c, a.S);
-    qf[kk][1] = load_pair(Q, a.q_stride[1], rows[1], c, a.S);
-    qf[kk][2] = load_pair(Q, a.q_stride[1], rows[0], c + 8, a.S);
-    qf[kk][3] = load_pair(Q, a.q_stride[1], rows[1], c + 8, a.S);
-  }
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  stage_kv<D>(stages, K, V, a, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < tile.n_tiles; ++kt) {
-    const int k0 = kt * kBlockN;
-    // prefetch tile kt+1 into the other stage, whose reads (tile kt-1)
-    // ended at the barrier closing the previous iteration
-    if (kt + 1 < tile.n_tiles)
-      stage_kv<D>(stages + ((kt + 1) & 1) * Smem::stage, K, V, a, kt + 1);
-    cp_async_commit();  // possibly empty: keeps one group per iteration
-    cp_async_wait_one();  // this thread's copies of tile kt have landed
-    __syncthreads();      // ... and everyone else's
-    const __nv_bfloat16* sK = stages + (kt & 1) * Smem::stage;
-    const __nv_bfloat16* sV = sK + kBlockN * P;
-
-    // scores: 8 column tiles of 8 keys each
-    float sc[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const __nv_bfloat16* krow = sK + (nt * 8 + g) * P + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16(sc[nt], qf[kk], b0, b1);
-      }
-    }
-
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool valid = key < a.S && (!a.causal || key <= rows[e >> 1]);
-        sc[nt][e] = valid ? sc[nt][e] * a.scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // the 4 lanes of a quad share a row
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    const Rescale rs[2] = {Rescale(m[0], mx[0]), Rescale(m[1], mx[1])};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] *= rs[i].corr;
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[nt][e] = rs[e >> 1].p(sc[nt][e]);
-        l[e >> 1] += sc[nt][e];  // this lane's share; quads sum at the end
-      }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= rs[0].corr;
-      o[j][1] *= rs[0].corr;
-      o[j][2] *= rs[1].corr;
-      o[j][3] *= rs[1].corr;
-    }
-
-    // o += p v: the score C fragments of key tiles 2j, 2j+1 are exactly the
-    // A fragment of keys 16j..16j+15
-#pragma unroll
-    for (int j = 0; j < kBlockN / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-          pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-          pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-          pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
-      const int mi = lane >> 3;  // which 8x8 matrix this lane addresses
-      const __nv_bfloat16* vrow =
-          sV + (j * 16 + (mi & 1) * 8 + (lane & 7)) * P + (mi >> 1) * 8;
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + dp * 16);
-        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // this stage's reads are done before it is refilled
-  }
-
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) +
-                     tile.b * a.o_stride[0] + tile.h * a.o_stride[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (rows[i] >= a.S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(O + rows[i] * a.o_stride[1] + j * 8 + 2 * t) =
-          pack_bf16(o[j][2 * i] / denom, o[j][2 * i + 1] / denom);
-    if (a.lse != nullptr && t == 0)
-      a.lse[static_cast<long long>(tile.bh) * a.S + rows[i]] = lse_of(m[i], l[i]);
-  }
-}
-
-// ---- f32: CUDA-core FMA tiles --------------------------------------------
 
 constexpr int kFmaThreads = 256;  // 16 row groups of 16 lanes (half a warp)
 constexpr int kRows = kBlockM / 16;  // query rows per thread
@@ -428,10 +525,14 @@ extern "C" int nanotpu_flash_fwd(
          causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * H;
-  if (dtype == 1 && D == 64)
-    return launch(flash_fwd_bf16<64>, kMmaThreads, MmaSmem<64>::bytes, a, BH, st);
-  if (dtype == 1 && D == 128)
-    return launch(flash_fwd_bf16<128>, kMmaThreads, MmaSmem<128>::bytes, a, BH, st);
+  if (dtype == 1 && D == 64) {
+    // 192-row items (three consumer warpgroups) where they fill at least
+    // two rounds of the persistent grid, else 128-row items
+    const int items3 = B * H * ((S + 191) / 192);
+    return items3 >= 2 * sm_count() ? launch_bf16<64, 3>(a, B, st)
+                                    : launch_bf16<64, 2>(a, B, st);
+  }
+  if (dtype == 1 && D == 128) return launch_bf16<128, 2>(a, B, st);
   if (dtype == 0 && D == 64)
     return launch(flash_fwd_f32<64>, kFmaThreads, FmaSmem<64>::bytes, a, BH, st);
   if (dtype == 0 && D == 128)

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives for the port's kernels: mbarriers, TMA tile
-// loads and the bulk tensor reduce, the async-proxy fence, named barriers,
-// wgmma shared-memory descriptors and the products built on them, register
-// reallocation, and the host-side tensor-map encoder. Inline PTX only, so a
-// source that includes this builds in seconds; no -lcuda: the CUDA driver
-// API's cuTensorMapEncodeTiled is fetched through the runtime at first use.
+// loads and stores and the bulk tensor reduce, the async-proxy fence, named
+// barriers, wgmma shared-memory descriptors and the products built on them,
+// register reallocation, and the host-side tensor-map encoder. Inline PTX
+// only, so a source that includes this builds in seconds; no -lcuda: the
+// CUDA driver API's cuTensorMapEncodeTiled is fetched through the runtime
+// at first use.
 //
 // Shared-memory tiles are in the 128-byte swizzle throughout: a tile of
 // bf16 rows is cut into panels of 64 columns (128 bytes a row), each panel
@@ -85,6 +86,18 @@ __device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// A shared-memory box into global memory at (c0 .. c3); elements out of
+// range are dropped. Tracked by this thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -107,6 +120,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 // A barrier among `threads` threads (a multiple of 32), id 1..15.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+// Arrive at that barrier without waiting for it.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // 2^x on the special-function unit, subnormal results flushed to 0.
@@ -144,8 +161,9 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// until at most N of this warpgroup's committed groups are pending
+template <int N = 0> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 // Pin registers an asynchronous wgmma reads or writes, so that the
 // compiler moves no access to them across a wgmma_wait.
@@ -171,8 +189,23 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
     "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
     "+f"(d[i + 7])
 
-// d[64 x N] (+)= A . B^T for N = 64 and 32, both from shared memory.
+// d[64 x N] (+)= A . B^T for N = 128, 64 and 32, both from shared memory.
 // kTransA / kTransB: the operand is MN-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : NTPU_ACC8(0), NTPU_ACC8(8), NTPU_ACC8(16), NTPU_ACC8(24),
+        NTPU_ACC8(32), NTPU_ACC8(40), NTPU_ACC8(48), NTPU_ACC8(56)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
 template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
@@ -232,13 +265,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 #undef NTPU_ACC8
 
-// N picks the instruction: 32 or 64 from shared memory, 64 or 128 with A
-// in registers.
+// N picks the instruction: 32, 64 or 128 from shared memory, 64 or 128
+// with A in registers.
 template <int kTransA, int kTransB, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
   if constexpr (N == 32) wgmma_ss_n32<kTransA, kTransB>(d, da, db, accumulate);
-  else wgmma_ss_n64<kTransA, kTransB>(d, da, db, accumulate);
+  else if constexpr (N == 64)
+    wgmma_ss_n64<kTransA, kTransB>(d, da, db, accumulate);
+  else wgmma_ss_n128<kTransA, kTransB>(d, da, db, accumulate);
 }
 template <int kTransB, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],

@@ -287,3 +287,104 @@ def test_bf16_dk_dv_repeat_bit_for_bit(card, D):
         again = fn(q, k, v, dout, lse, dvec, True)[-2:]
         for a, b in zip(first, again):
             assert torch.equal(a, b), fn.__name__
+
+
+#: the Q-stationary bf16 kernels' (forward and two-pass dq) tile edges: S
+#: around their 128-row blocks, 64-row warpgroups and 64- or 128-key
+#: tiles, and a ragged long S
+_Q_EDGES = [1, 63, 64, 65, 127, 128, 129, 2047]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_lse", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV,D", [(16, 4, 64), (8, 1, 128)])
+@pytest.mark.parametrize("S", _Q_EDGES)
+def test_bf16_forward_at_tile_edges(card, S, H, KV, D, causal, need_lse):
+    """The bf16 forward against the plain version where its tiles end: a
+    query block or key tile partly or wholly past S, and the causal
+    diagonal inside a 128-key tile; out, and lse where asked for."""
+    B = 1 if S > 1000 else 2
+    gen = torch.Generator(device=card).manual_seed(S + H + D)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=card).bfloat16()
+               for h in (H, KV, KV))
+    got = flash_attention(q, k, v, causal, need_lse=need_lse)
+    out, lse = got if need_lse else (got, None)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = attention_lse_ref(q.float(), k.float(), v.float(),
+                                         causal)
+    assert (out.float() - ref_out).abs().max().item() <= TOL[torch.bfloat16]
+    if need_lse:
+        assert (lse - ref_lse).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 129, 191, 192, 193, 383, 385, 2047])
+def test_bf16_forward_three_warpgroups_at_tile_edges(card, S, causal):
+    """At D=64 the forward gives an item three warpgroups (192 rows) when
+    there are items enough for two rounds of its one-block-an-SM grid: B is
+    sized for that here, and S is taken around the 192-row items, whose
+    causal diagonal can cross two 128-key tiles."""
+    H, KV, D = 16, 4, 64
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    B = -(-2 * sms // (H * -(-S // 192)))
+    gen = torch.Generator(device=card).manual_seed(S + 3)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=card).bfloat16()
+               for h in (H, KV, KV))
+    out, lse = flash_attention(q, k, v, causal, need_lse=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = attention_lse_ref(q.float(), k.float(), v.float(),
+                                         causal)
+    assert (out.float() - ref_out).abs().max().item() <= TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV,D", [(16, 4, 64), (8, 1, 128)])
+@pytest.mark.parametrize("S", _Q_EDGES)
+def test_bf16_dq_at_tile_edges(card, S, H, KV, D, causal):
+    """The two-pass dq kernel against the plain version at the same edges."""
+    B = 1 if S > 1000 else 2
+    q, k, v, dout, lse, dvec, want = _bwd_case(card, torch.bfloat16, B, S, H,
+                                               KV, D, causal, S + H + D + 1)
+    dq = att.flash_bwd_dq(q, k, v, dout, lse, dvec, causal)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+    assert _row_err(dq, want[0]) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_forward_and_dq_read_strided_inputs(card, D):
+    """q/k/v and dO as views of fused projections, at a ragged S: the
+    tensor maps read them through their strides, no copy, same answers."""
+    gen = torch.Generator(device=card).manual_seed(D + 5)
+    qkv = torch.randn((2, 300, 12, D), generator=gen, device=card).bfloat16()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    dout = torch.randn((2, 300, 16, D), generator=gen,
+                       device=card).bfloat16()[:, :, ::2]
+    assert not q.is_contiguous() and not dout.is_contiguous()
+    out, lse = flash_attention(q, k, v, True, need_lse=True)
+    ref_out, ref_lse = attention_lse_ref(q.float(), k.float(), v.float(), True)
+    dvec = att._dvec(out, dout)
+    dq = att.flash_bwd_dq(q, k, v, dout, lse, dvec, True)
+    torch.cuda.synchronize()
+    assert (out.float() - ref_out).abs().max().item() <= TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= TOL[torch.bfloat16]
+    want = att.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                 lse, dout.float(), True)
+    assert _row_err(dq, want[0]) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_dq_repeats_bit_for_bit(card, D):
+    """The two-pass dq stays in registers and is written once (no atomics):
+    two runs give the same bits."""
+    q, k, v, dout, lse, dvec, _ = _bwd_case(card, torch.bfloat16, 2, 1000, 8,
+                                            2, D, True, D + 1)
+    first = att.flash_bwd_dq(q, k, v, dout, lse, dvec, True)
+    again = att.flash_bwd_dq(q, k, v, dout, lse, dvec, True)
+    assert torch.equal(first, again)

@@ -115,19 +115,29 @@ def test_library_names_carry_the_included_headers(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     monkeypatch.setattr(_build, "SOURCES", {
         name: tmp_path / path.name for name, path in _build.SOURCES.items()})
-    assert {p.name for p in _build._inputs(_build.SOURCES["flash_bwd"])} == {
-        "flash_bwd.cu", "flash_common.cuh", "hopper.cuh"}
+    for name in ("flash_fwd", "flash_bwd"):  # hopper.cuh through flash_common
+        assert {p.name for p in _build._inputs(_build.SOURCES[name])} == {
+            f"{name}.cu", "flash_common.cuh", "hopper.cuh"}
     before = {name: _build._target(name) for name in _build.SOURCES}
     header = tmp_path / "flash_common.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {name: _build._target(name) for name in _build.SOURCES}
     assert all(before[n] != after[n] for n in ("flash_fwd", "flash_bwd"))
-    # a header only flash_bwd.cu includes renames only its library
     header = tmp_path / "hopper.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     again = {name: _build._target(name) for name in _build.SOURCES}
-    assert again["flash_bwd"] != after["flash_bwd"]
-    assert again["flash_fwd"] == after["flash_fwd"]
+    assert all(after[n] != again[n] for n in ("flash_fwd", "flash_bwd"))
+    # a header only flash_bwd.cu includes renames only its library
+    (tmp_path / "only_bwd.cuh").write_bytes(b"#pragma once\n")
+    src = tmp_path / "flash_bwd.cu"
+    src.write_bytes(b'#include "only_bwd.cuh"\n' + src.read_bytes())
+    assert "only_bwd.cuh" in {p.name for p in _build._inputs(src)}
+    again = {name: _build._target(name) for name in _build.SOURCES}
+    header = tmp_path / "only_bwd.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    last = {name: _build._target(name) for name in _build.SOURCES}
+    assert last["flash_bwd"] != again["flash_bwd"]
+    assert last["flash_fwd"] == again["flash_fwd"]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -149,23 +159,58 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
 
 
 def test_chip_smoke_reads_registers_and_spills_of_the_dkv_kernels():
-    """chip_smoke fails a build whose bf16 dk/dv kernels spill: its parser
-    reads ptxas's report per kernel, spill stores and loads summed."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    """chip_smoke fails a build whose bf16 kernels (the dk/dv and fused
+    kernels, the forward and the two-pass dq) spill: its parser reads
+    ptxas's report per kernel of both libraries, spill stores and loads
+    summed, and leaves the f32 kernels out."""
+    smoke = _chip_smoke()
     name = "_ZN45_GLOBAL__N__0_12_flash_bwd_cu_0a11bwd_kv_bf16ILi{}ELb{}EEEvNS_5KvTmaE"
     report = "\n".join(
         f"ptxas info    : Function properties for {name.format(d, q)}\n"
         f"    0 bytes stack frame, {sp} bytes spill stores, {sp} bytes spill "
         f"loads\nptxas info    : Used {regs} registers, used 3 barriers"
         for d, q, sp, regs in ((64, 1, 0, 128), (128, 0, 8, 168)))
-    report += ("\nptxas info    : Function properties for _ZN_bwd_dq_bf16ILi64EE"
-               "\n    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
-               "loads\nptxas info    : Used 90 registers")
-    assert smoke.kv_ptxas({"flash_bwd": {"ptxas": report}}) == {
-        "bwd_kv_bf16<64, true>": (128, 0), "bwd_kv_bf16<128, false>": (168, 16)}
-    assert smoke.kv_ptxas({}) == {}
+
+    def props(fn, spill, regs):
+        return (f"\nptxas info    : Function properties for {fn}\n    0 bytes "
+                f"stack frame, {spill} bytes spill stores, {spill} bytes "
+                f"spill loads\nptxas info    : Used {regs} registers")
+
+    report += props("_ZN_bwd_dq_bf16ILi64EE", 4, 90)
+    report += props("_ZN_bwd_dq_f32ILi64EE", 0, 80)
+    fwd = props("_ZN_flash_fwd_bf16ILi64ELi3EEEvNS_6FwdTmaE", 0, 128)
+    regs, notes = smoke.bf16_ptxas({"flash_bwd": {"ptxas": report},
+                                    "flash_fwd": {"ptxas": fwd}})
+    assert regs == {
+        "bwd_kv_bf16<64, true>": (128, 0),
+        "bwd_kv_bf16<128, false>": (168, 16),
+        "bwd_dq_bf16<64>": (90, 8), "flash_fwd_bf16<64, 3>": (128, 0)}
+    assert notes == []
+    assert smoke.bf16_ptxas({}) == ({}, [])
+
+
+def test_chip_smoke_reads_wgmma_serialization_notes():
+    """chip_smoke fails a build in which ptxas serialized a kernel's
+    wgmmas (C7510-C7519) or ignored its setmaxnreg (C7507), whichever
+    library it is in; other notes pass."""
+    smoke = _chip_smoke()
+    serialized = ("ptxas info    : (C7515) Potential Performance Loss: wgmma."
+                  "mma_async instructions are serialized due to insufficient "
+                  "register resources for the wgmma pipeline in the function "
+                  "'_ZN_flash_fwd_bf16ILi64ELi3EEEvNS_6FwdTmaE'")
+    ignored = "ptxas warning : (C7507) setmaxnreg ignored; unable to ..."
+    other = "ptxas info    : (C7001) something else"
+    _, notes = smoke.bf16_ptxas({
+        "flash_fwd": {"ptxas": serialized},
+        "flash_bwd": {"ptxas": f"{other}\n{ignored}"}})
+    assert notes == [serialized, ignored]
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
