@@ -34,24 +34,40 @@ them:
    that every admission prefill launched the forward kernel once per layer;
 6. serving parity phase: in float32 at the flagship width, the engine's
    greedy tokens equal the port's own ``generate``;
-7. training phase: the trainer's CLI entry (``nanotpu_torch.parallel.train``)
+7. int8 serving phase: the serving flagship with int8 weights and an int8
+   KV cache (``build_engine(..., quantize=True, kv_int8=True)``) through
+   the serving phase's HTTP drive and measurements; the share of greedy
+   tokens equal to the bf16 engine's, the quantized logits against bf16,
+   parameter and cache bytes, peak memory, ``quant.matmul`` against a bf16
+   matmul at the decode shapes and one ``dequantize_kv`` against one
+   attend; then ``python -m nanotpu_torch.serving.server --preset flagship
+   --int8 --kv-int8`` starts, answers and stops;
+8. speculative phase: a 2-layer draft of the serving flagship
+   (truncated-teacher init) distilled in f32 on the target's samples at
+   T=0.8 (the held-out soft-CE must fall); in f32 the speculative engine's
+   greedy tokens must equal the plain engine's; then the same weights in
+   bf16 served by the plain engine and the "always" and "measured"
+   policies at 1, 2 and 8 active rows (acceptance, decode tokens/s, greedy
+   tokens equal to plain's); then ``python -m nanotpu_torch.models.distill``
+   runs briefly and its JSON line must parse;
+9. training phase: the trainer's CLI entry (``nanotpu_torch.parallel.train``)
    on the training flagship (vocab 32768, dim 1024, 8 layers, 16/4 heads,
    bf16, ``--attn flash --seq 2049 --batch 8 --data markov --steps 10``):
    finite losses, lower at step 10 than at step 1, 8 fused backward
    launches and at least 8 forward launches a step; peak memory, steady
    tokens/s and one step under the profiler, with the fused backward's
    share of its device-busy time;
-8. two-pass phase: one such step with ``FUSED_BWD_MAX_S = 0`` (what
-   ``NANOTPU_FLASH_FUSED_BWD_MAX_S=0`` sets at import), so the dq and dk/dv
-   kernels run on the path, 8 launches each;
-9. training parity phase: one f32 train step of the flagship width from the
-   same parameters through ``attn_impl="flash"`` and ``"dense"``: close loss,
-   gradients and updated parameters.
+10. two-pass phase: one such step with ``FUSED_BWD_MAX_S = 0`` (what
+    ``NANOTPU_FLASH_FUSED_BWD_MAX_S=0`` sets at import), so the dq and dk/dv
+    kernels run on the path, 8 launches each;
+11. training parity phase: one f32 train step of the flagship width from
+    the same parameters through ``attn_impl="flash"`` and ``"dense"``: close
+    loss, gradients and updated parameters.
 
 The last two lines are the kernel table and the device record, as JSON.
-Each path (serving, training, two-pass) counts its kernel launches from 0
-and reads them just after it ran; the table gives each path's count and
-their sum.
+Each path (serving, int8 serving, speculative, training, two-pass) counts
+its kernel launches from 0 and reads them just after it ran; the table
+gives each path's count and their sum.
 Every phase that fails raises; nothing is caught.
 
 Run:  python3 chip_smoke.py     (one CUDA card and nvcc; builds on first use)
@@ -446,19 +462,19 @@ def get(url: str) -> bytes:
         return resp.read()
 
 
-def serving_phase(card: str) -> dict:
+def drive_http(engine, label: str) -> dict:
+    """The serving drive of one engine behind the port's HTTP server:
+    concurrent ``/v1/generate`` requests at the four prompt lengths (one of
+    them repeated) and one SSE request, checked (tokens, determinism,
+    ``/v1/stats``, ``/metrics``, one forward-kernel launch per layer an
+    admission). Launches are counted from 0 just before and read just
+    after. Returns the greedy tokens of the four prompts, the TTFTs, the
+    launches and the generator the prompts came from (``measure`` goes on
+    drawing from it)."""
     from nanotpu_torch.serving.http import serve
-    from nanotpu_torch.serving.server import ServingAPI, build_engine
+    from nanotpu_torch.serving.server import ServingAPI
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine = build_engine("flagship", slots=SLOTS, max_len=MAX_LEN,
-                          seed=0, device="cuda")
-    engine.wait_warm()
     cfg = engine.cfg
-    print(f"flagship engine ready in {time.perf_counter() - t0:.1f} s "
-          f"(dim {cfg.dim}, {cfg.n_layers} layers, {cfg.n_heads}/"
-          f"{cfg.n_kv_heads} heads, {cfg.dtype}, attn {cfg.attn_impl})")
     api = ServingAPI(engine)
     server = serve(api, 0, host="127.0.0.1")
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -495,19 +511,21 @@ def serving_phase(card: str) -> dict:
         wall = time.perf_counter() - t_start
         launches = read_launches()
         if any(t.is_alive() for t in threads) or len(results) != len(threads):
-            raise AssertionError(f"only {len(results)} of {len(threads)} "
-                                 "requests completed")
+            raise AssertionError(f"{label}: only {len(results)} of "
+                                 f"{len(threads)} requests completed")
         for i, res in results.items():
             toks = res["tokens"]
             if len(toks) != NEW_TOKENS or not all(
                 0 <= t < cfg.vocab_size for t in toks
             ):
-                raise AssertionError(f"request {i}: bad tokens {toks}")
+                raise AssertionError(f"{label} request {i}: bad tokens {toks}")
         if results[1]["tokens"] != results[len(jobs) - 1]["tokens"]:
-            raise AssertionError("a repeated greedy prompt changed its tokens")
+            raise AssertionError(f"{label}: a repeated greedy prompt changed "
+                                 "its tokens")
         sse = results[len(jobs)]
         if not sse["final"].get("done") or sse["final"]["n_tokens"] != NEW_TOKENS:
-            raise AssertionError(f"SSE stream did not finish: {sse['final']}")
+            raise AssertionError(f"{label}: SSE stream did not finish: "
+                                 f"{sse['final']}")
         stats = json.loads(get(f"{base}/v1/stats"))
         # the metrics() fields under the names a remote stats provider
         # reads from /v1/stats (queue_depth travels as "queued")
@@ -515,41 +533,55 @@ def serving_phase(card: str) -> dict:
                   for k in engine.metrics()}
         missing = wanted - set(stats)
         if missing:
-            raise AssertionError(f"/v1/stats lacks {sorted(missing)}")
+            raise AssertionError(f"{label}: /v1/stats lacks {sorted(missing)}")
         metrics = get(f"{base}/metrics").decode()
         for series in ("nanotpu_serve_requests_total",
                        "nanotpu_serve_ttft_seconds"):
             if series not in metrics:
-                raise AssertionError(f"/metrics lacks {series}")
-        admissions = len(threads)
-        if launches != {**dict.fromkeys(launches, 0),
-                        "flash_fwd": cfg.n_layers * admissions}:
-            raise AssertionError(
-                f"kernel launches {launches} for {admissions} admissions of "
-                f"{cfg.n_layers} layers"
-            )
-        ttfts = [r["ttft_ms"] for r in results.values() if "ttft_ms" in r]
-        ttfts.append(sse["final"]["ttft_ms"])
-        print(f"served {admissions} concurrent requests (prompts "
-              f"{[len(j['tokens']) for j in jobs + [stream_job]]}, "
-              f"{NEW_TOKENS} new tokens each, SSE events {sse['n_events']}) "
-              f"in {wall:.3f} s; launches {launches}")
-
-        out = {
-            "ttft_p50_ms": float(np.percentile(ttfts, 50)),
-            "ttft_ms": ttfts,
-            "launches": launches,
-        }
-        out.update(measure(engine, rng, card))
-        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        print(f"serving on {card}: TTFT p50 {out['ttft_p50_ms']:.2f} ms over "
-              f"{len(ttfts)} concurrent requests (all: {ttfts}); decode "
-              f"{out['decode_tok_s']:.1f} tok/s at {SLOTS} busy slots; peak "
-              f"memory {out['peak_mem_gib']:.3f} GiB")
-        return out
+                raise AssertionError(f"{label}: /metrics lacks {series}")
     finally:
         server.shutdown()
         server.server_close()
+    admissions = len(threads)
+    if launches != {**dict.fromkeys(launches, 0),
+                    "flash_fwd": cfg.n_layers * admissions}:
+        raise AssertionError(
+            f"{label}: kernel launches {launches} for {admissions} admissions "
+            f"of {cfg.n_layers} layers"
+        )
+    ttfts = [r["ttft_ms"] for r in results.values() if "ttft_ms" in r]
+    ttfts.append(sse["final"]["ttft_ms"])
+    print(f"{label}: served {admissions} concurrent requests (prompts "
+          f"{[len(j['tokens']) for j in jobs + [stream_job]]}, {NEW_TOKENS} "
+          f"new tokens each, SSE events {sse['n_events']}) in {wall:.3f} s; "
+          f"launches {launches}")
+    return {"greedy": [results[i]["tokens"] for i in range(len(PROMPT_LENS))],
+            "ttft_ms": ttfts, "ttft_p50_ms": float(np.percentile(ttfts, 50)),
+            "launches": launches, "rng": rng}
+
+
+def serving_phase(card: str) -> dict:
+    from nanotpu_torch.serving.server import build_engine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine("flagship", slots=SLOTS, max_len=MAX_LEN,
+                          seed=0, device="cuda")
+    try:
+        engine.wait_warm()
+        cfg = engine.cfg
+        print(f"flagship engine ready in {time.perf_counter() - t0:.1f} s "
+              f"(dim {cfg.dim}, {cfg.n_layers} layers, {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} heads, {cfg.dtype}, attn {cfg.attn_impl})")
+        out = drive_http(engine, "serving")
+        out.update(measure(engine, out.pop("rng"), card))
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"serving on {card}: TTFT p50 {out['ttft_p50_ms']:.2f} ms over "
+              f"{len(out['ttft_ms'])} concurrent requests (all: "
+              f"{out['ttft_ms']}); decode {out['decode_tok_s']:.1f} tok/s at "
+              f"{SLOTS} busy slots; peak memory {out['peak_mem_gib']:.3f} GiB")
+        return out
+    finally:
         engine.stop()
 
 
@@ -643,6 +675,469 @@ def parity_phase() -> None:
     if got != want:
         raise AssertionError(f"f32 engine {got} != generate {want}")
     print(f"parity: f32 flagship engine greedy tokens equal generate: {got}")
+
+
+#: the decode shapes of the serving flagship's products at B=8: q and o
+#: projections, gate and up, down, lm_head
+DECODE_MATMULS = (("attn.wq", 1024, 1024), ("mlp.w_up", 1024, 2816),
+                  ("mlp.w_down", 2816, 1024), ("lm_head", 1024, 32768))
+
+
+def tree_bytes(tree) -> int:
+    from nanotpu_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def int8_serving_phase(card: str, bf16_greedy: list) -> dict:
+    """The serving flagship with int8 weights and an int8 KV cache
+    (``build_engine(..., quantize=True, kv_int8=True)``, the weights the
+    bf16 serving phase served, quantized) behind the HTTP server: the drive
+    and the bring-up numbers of the serving phase, the share of greedy
+    tokens equal to the bf16 engine's, the quantized forward's logits
+    against bf16 (max |diff| over the logits' RMS), parameter and cache
+    bytes, and the eager costs that int8 adds: ``quant.matmul`` against
+    ``x @ w`` at the decode shapes, and one ``dequantize_kv`` of a layer's
+    cache against one decode step's attend."""
+    from nanotpu_torch.models import quant
+    from nanotpu_torch.models.llama import forward, init_params
+    from nanotpu_torch.serving.engine import _attend_rows, dequantize_kv
+    from nanotpu_torch.serving.server import build_engine
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = build_engine("flagship", slots=SLOTS, max_len=MAX_LEN, seed=0,
+                          device="cuda", quantize=True, kv_int8=True)
+    try:
+        engine.wait_warm()
+        cfg = engine.cfg
+        out = drive_http(engine, "int8 serving")
+        pairs = [(a, b) for x, y in zip(out.pop("greedy"), bf16_greedy)
+                 for a, b in zip(x, y)]
+        out["greedy_equal_share"] = sum(a == b for a, b in pairs) / len(pairs)
+        out.update(measure(engine, out.pop("rng"), card))
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        qparams, cache = engine.params, engine._cache
+    finally:
+        engine.stop()
+    kv = SLOTS * MAX_LEN * cfg.n_kv_heads * cfg.head_dim * cfg.n_layers * 2
+    out["cache_bytes"] = {"bfloat16": 2 * kv,
+                          "int8": tree_bytes(list(cache[:-1]))}
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    if not torch.equal(quant.quantize(params["lm_head"]).q,
+                       qparams["lm_head"].q):
+        raise AssertionError("the int8 engine's weights are not the bf16 "
+                             "engine's, quantized")
+    out["param_bytes"] = {"bfloat16": quant.param_bytes(params),
+                          "int8": quant.param_bytes(qparams)}
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(7))
+    with torch.inference_mode():
+        ref = forward(params, tokens, cfg)
+        got = forward(qparams, tokens, cfg)
+    rms = ref.pow(2).mean().sqrt()
+    out["logit_err_over_rms"] = ((got - ref).abs().max() / rms).item()
+    out["logit_top1_equal_share"] = (
+        got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    if not torch.isfinite(got).all():
+        raise AssertionError("the quantized forward's logits are not finite")
+    del ref, got
+
+    x = torch.randn((SLOTS, 1, 2816), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(8))
+    x = x.bfloat16()
+    out["matmul_ms"] = {}
+    with torch.inference_mode():
+        for name, n_in, n_out in DECODE_MATMULS:
+            w, qw = params, qparams
+            for part in (["layers", 0] if name != "lm_head" else []) + \
+                    name.split("."):
+                w, qw = w[part], qw[part]
+            xs = x[..., :n_in].contiguous()
+            int8_ms = cuda_ms(lambda: quant.matmul(xs, qw))
+            bf16_ms = cuda_ms(lambda: xs @ w)
+            cast_ms = cuda_ms(lambda: qw.q.to(torch.bfloat16))
+            nbytes = n_in * n_out + 4 * n_out + 2 * SLOTS * (n_in + n_out)
+            out["matmul_ms"][f"{n_in}x{n_out}"] = {
+                "int8": int8_ms, "bf16": bf16_ms, "int8_cast_only": cast_ms,
+                "int8_bound_ms": 1e3 * nbytes / PEAK_BYTES}
+        c = cache
+        q = torch.randn((SLOTS, 1, cfg.n_heads, cfg.head_dim), device="cuda",
+                        dtype=torch.bfloat16)
+        base = torch.full((SLOTS,), MAX_LEN - 1, dtype=torch.int32,
+                          device="cuda")
+        k_bf16 = dequantize_kv(c.k[0], c.k_scale[0], torch.bfloat16)
+        v_bf16 = dequantize_kv(c.v[0], c.v_scale[0], torch.bfloat16)
+        out["dequantize_kv_ms"] = cuda_ms(
+            lambda: dequantize_kv(c.k[0], c.k_scale[0], torch.bfloat16))
+        out["attend_ms"] = cuda_ms(lambda: _attend_rows(q, k_bf16, v_bf16,
+                                                         base))
+    print(f"int8 serving on {card}: greedy tokens equal to bf16's "
+          f"{out['greedy_equal_share']:.4f}; logits max|diff|/RMS "
+          f"{out['logit_err_over_rms']:.4f}, top-1 equal "
+          f"{out['logit_top1_equal_share']:.4f}; TTFT by bucket "
+          f"{out['ttft_by_bucket_ms']}; decode {out['decode_tok_s']:.1f} "
+          f"tok/s at {SLOTS} busy slots; params {out['param_bytes']} B, "
+          f"cache {out['cache_bytes']} B, peak memory "
+          f"{out['peak_mem_gib']:.3f} GiB")
+    print(f"int8 costs on {card}: matmul at B={SLOTS} (ms) "
+          f"{out['matmul_ms']}; dequantize_kv of one layer's "
+          f"[{SLOTS}, {MAX_LEN}, {cfg.n_kv_heads}, {cfg.head_dim}] cache "
+          f"{out['dequantize_kv_ms']:.4f} ms against one decode step's "
+          f"attend {out['attend_ms']:.4f} ms")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def server_cli_phase(card: str) -> dict:
+    """``python -m nanotpu_torch.serving.server --preset flagship --int8
+    --kv-int8`` starts, answers one request, and stops on SIGTERM."""
+    import signal
+    import tempfile
+
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nanotpu_torch.serving.server", "--preset",
+         "flagship", "--int8", "--kv-int8", "--port", str(port)],
+        cwd=here, stdout=log, stderr=subprocess.STDOUT, text=True)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        while True:
+            if proc.poll() is not None:
+                log.seek(0)
+                raise AssertionError(f"the int8 server exited: "
+                                     f"{log.read()[-2000:]}")
+            try:
+                get(f"{base}/healthz")
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 300:
+                    raise
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        res = json.loads(post(f"{base}/v1/generate",
+                              {"tokens": [1, 2, 3], "max_new_tokens": 8}))
+        if len(res["tokens"]) != 8:
+            raise AssertionError(f"the int8 server answered {res}")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    print(f"server CLI --int8 --kv-int8 on {card}: ready in {ready_s:.1f} s, "
+          f"answered {res['tokens']}, exit code {code} after SIGTERM")
+    if code != 0:
+        raise AssertionError(f"the int8 server exited with {code}")
+    return {"ready_s": ready_s}
+
+
+#: the speculative phase's depth and drive: prompts of 64 tokens, 128 new
+#: tokens each, at these occupancies; the draft is distilled at the
+#: serving temperature SPEC_T
+SPEC_K, SPEC_NEW, SPEC_ROWS, SPEC_T = 4, 128, (1, 2, 8), 0.8
+#: distillation: steps, batch, sequence, fresh samples every N steps, and
+#: the learning rate
+DISTILL_STEPS, DISTILL_B, DISTILL_S, DISTILL_FRESH = 48, 8, 128, 4
+DISTILL_LR = 1e-5
+#: the targets distilled: the first is the one the drive serves
+DISTILL_SEEDS = (0, 3)
+
+
+def spec_round(engine, prompts, n_new) -> tuple:
+    """(tokens of each request, decode tokens/s): the requests run together,
+    the rate over the window from the last first token to the last one."""
+    reqs = [engine.submit(p, n_new) for p in prompts]
+    for r in reqs:
+        if not r.wait(600) or r.error:
+            raise AssertionError(f"speculative drive: {r.error}")
+    window = max(r.done_at for r in reqs) - max(r.first_token_at for r in reqs)
+    return [r.out for r in reqs], sum(len(r.out) - 1 for r in reqs) / window
+
+
+def bf16_copy(tree):
+    """The tree as the bf16 preset holds it: matrices in bf16, the norm
+    gains in f32 (``init_params`` draws in f32 and casts the matrices)."""
+    from nanotpu_torch.tree import map_tree
+
+    return map_tree(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t,
+                    tree)
+
+
+def distill_draft(params, cfg, dcfg, lr: float, steps: int, seed: int):
+    """A draft of ``dcfg`` (truncated-teacher init) distilled for ``steps``
+    steps on the target's own samples at T=0.8: (draft, held-out soft-CE
+    before, after, the step losses, seconds). Each batch the target
+    samples (one flash prefill) and labels (one flash forward)."""
+    from nanotpu_torch.models import distill
+    from nanotpu_torch.models.generate import generate
+    from nanotpu_torch.models.llama import forward
+
+    draft = distill.init_draft(
+        torch.Generator(device="cuda").manual_seed(seed + 1), params, cfg,
+        dcfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    def target_batch():
+        with torch.no_grad():
+            prompts = torch.randint(0, cfg.vocab_size, (DISTILL_B, 1),
+                                    device="cuda", generator=gen)
+            sampled = generate(params, prompts, cfg, DISTILL_S,
+                               temperature=SPEC_T, generator=gen,
+                               max_len=DISTILL_S + 1)
+            tokens = torch.cat([prompts, sampled], dim=1)
+            return tokens, forward(params, tokens[:, :-1], cfg)
+
+    def held_out_ce():
+        with torch.no_grad():
+            return distill.distill_loss(draft, *held_out, dcfg, SPEC_T).item()
+
+    held_out = target_batch()
+    ce_before = held_out_ce()
+    init_opt, step = distill.make_distill_step(dcfg, lr=lr,
+                                               label_temperature=SPEC_T)
+    opt_state = init_opt(draft)
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        if i % DISTILL_FRESH == 0:
+            batch = target_batch()
+        draft, opt_state, loss = step(draft, opt_state, *batch)
+        losses.append(loss)
+    losses = [x.item() for x in losses]
+    return draft, ce_before, held_out_ce(), losses, time.perf_counter() - t0
+
+
+def speculative_phase(card: str) -> dict:
+    """examples/speculative_serving.py at the serving flagship's width: a
+    2-layer draft (truncated-teacher init) distilled on the target's own
+    samples at T=0.8 (in f32: the held-out soft-CE must fall, on the
+    target of seed 0 that the drive below serves and on a second target of
+    seed 3); in f32, greedy requests through the speculative engine must
+    equal the plain engine's, token for token, and speculative_generate
+    generate's; then the same weights in bf16 (the serving phase's target)
+    served by the plain engine and the "always" and "measured" policies at
+    1, 2 and 8 active rows: acceptance, decode tokens/s and the share of
+    greedy tokens equal to plain's, with no bound on it.
+
+    Two paths' launches: "distill", counted from 0 before the first
+    distillation and read after the second, and "speculative", each
+    speculative engine's, counted from 0 at its construction and read after
+    it stopped (the plain engines and speculative_generate are references
+    and do not count). Each must be exact: the target's flash prefill once
+    a layer for each prefill, and no backward kernel."""
+    from nanotpu_torch.models import distill
+    from nanotpu_torch.models.generate import generate
+    from nanotpu_torch.models.llama import init_params
+    from nanotpu_torch.models.speculative import speculative_generate
+    from nanotpu_torch.serving.engine import Engine
+    from nanotpu_torch.serving.server import serving_config
+
+    cfg = dataclasses.replace(serving_config("flagship", MAX_LEN),
+                              dtype="float32")
+    dcfg = distill.draft_config(cfg, ffn_dim=cfg.ffn_dim)
+    distilled = {}
+    reset_launches()
+    for seed in DISTILL_SEEDS:
+        target = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        draft, ce_before, ce_after, losses, distill_s = distill_draft(
+            target, cfg, dcfg, DISTILL_LR, DISTILL_STEPS, seed)
+        print(f"distilled a {dcfg.n_layers}-layer f32 draft of the target of "
+              f"seed {seed} for {DISTILL_STEPS} steps (B={DISTILL_B}, S="
+              f"{DISTILL_S}, T={SPEC_T}, lr {DISTILL_LR}) in {distill_s:.1f} "
+              f"s: held-out soft-CE {ce_before:.4f} -> {ce_after:.4f}; step "
+              f"losses {[round(x, 4) for x in losses[::8]]}")
+        if not ce_after < ce_before:
+            raise AssertionError(f"distillation did not lower the soft-CE "
+                                 f"(seed {seed}): {ce_before} -> {ce_after}")
+        distilled[seed] = {"ce_before": ce_before, "ce_after": ce_after,
+                           "distill_s": distill_s}
+        if seed == DISTILL_SEEDS[0]:
+            params, keep = target, draft
+        del target, draft
+    draft = keep
+    distill_launches = read_launches()
+    batches = 1 + -(-DISTILL_STEPS // DISTILL_FRESH)  # and the held-out one
+    want_fwd = 2 * cfg.n_layers * batches * len(DISTILL_SEEDS)
+    print(f"distill path launches {distill_launches} ({batches} batches a "
+          f"target, each sampled and labelled)")
+    if distill_launches != {**dict.fromkeys(distill_launches, 0),
+                            "flash_fwd": want_fwd}:
+        raise AssertionError(f"distill path launches {distill_launches}, "
+                             f"want {want_fwd} forward")
+
+    launches = dict.fromkeys(distill_launches, 0)
+    admissions = 0
+
+    def engine_run(params, cfg, kw, drive):
+        """An engine over ``params``, warmed up, driven by ``drive(engine)``
+        -> (result, requests), stopped; a speculative engine's launches and
+        prefills (one a request and the warm-up's) go into the path's."""
+        nonlocal admissions
+        if kw:
+            reset_launches()
+        eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                     device="cuda", **kw)
+        try:
+            eng.wait_warm()
+            res, n = drive(eng)
+        finally:
+            eng.stop()
+        if kw:
+            for name, n_launched in read_launches().items():
+                launches[name] += n_launched
+            admissions += n + 1
+        return res
+
+    # f32: speculation changes no greedy token
+    rng = np.random.default_rng(4)
+    f32_prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in PROMPT_LENS]
+
+    def f32_drive(name):
+        def drive(eng):
+            reqs = [eng.submit(p, NEW_TOKENS) for p in f32_prompts]
+            for r in reqs:
+                if not r.wait(600) or r.error:
+                    raise AssertionError(f"f32 {name} engine: {r.error}")
+            return ([r.out for r in reqs],
+                    eng.stats()["spec_tokens_per_cycle"]), len(reqs)
+        return drive
+
+    spec_kw = dict(draft_params=draft, draft_cfg=dcfg, draft_tokens=SPEC_K,
+                   spec_policy="always")
+    plain_out, _ = engine_run(params, cfg, {}, f32_drive("plain"))
+    always, f32_tpc = engine_run(params, cfg, spec_kw, f32_drive("always"))
+    if always != plain_out:
+        raise AssertionError(f"f32 speculative engine {always} != plain "
+                             f"engine {plain_out}")
+    # the target as its own draft accepts every proposal: the bonus token
+    # and the draft's cache extension are on the path (the draft attends
+    # densely, as draft_config's drafts do, so its prefills launch nothing)
+    self_kw = dict(spec_kw, draft_params=params,
+                   draft_cfg=dataclasses.replace(cfg, attn_impl="dense"))
+    self_out, self_tpc = engine_run(params, cfg, self_kw,
+                                    f32_drive("self-draft"))
+    if self_out != plain_out:
+        raise AssertionError("f32 self-draft engine != plain engine")
+    prompt = torch.tensor([f32_prompts[1]] * 2, device="cuda")
+    want = generate(params, prompt, cfg, NEW_TOKENS)
+    for d, dc in ((draft, dcfg), (params, cfg)):
+        got = speculative_generate(params, d, prompt, cfg, dc, NEW_TOKENS,
+                                   draft_tokens=SPEC_K)
+        if not torch.equal(got, want):
+            raise AssertionError("f32 speculative_generate != generate")
+    print(f"f32 at the flagship width on {card}: the speculative engine (K="
+          f"{SPEC_K}) equals the plain engine on {len(f32_prompts)} requests "
+          f"x {NEW_TOKENS} tokens with the distilled draft ({f32_tpc} tokens "
+          f"a row-cycle) and with the target as its own draft ({self_tpc}); "
+          f"speculative_generate equals generate with both")
+    if not self_tpc > SPEC_K:
+        raise AssertionError(f"the target as its own draft emitted {self_tpc} "
+                             f"tokens a cycle")
+
+    # bf16: the serving phase's target and the distilled draft, rounded
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    dcfg = dataclasses.replace(dcfg, dtype="bfloat16")
+    params, draft = bf16_copy(params), bf16_copy(draft)
+    for name in distill.FROZEN:
+        draft[name] = params[name]
+    rng = np.random.default_rng(3)
+    prompts = {n: [rng.integers(0, cfg.vocab_size, 64).tolist()
+                   for _ in range(n)] for n in SPEC_ROWS}
+
+    def bf16_drive(policy):
+        def drive(eng):
+            rows, submitted = {}, 0
+            for n in SPEC_ROWS:
+                # one untimed round; the measured policy until each arm of
+                # this occupancy's large-chunk cell has its samples
+                for _ in range(8):
+                    spec_round(eng, prompts[n], SPEC_NEW)
+                    submitted += n
+                    cell = eng._bandit_n.get((eng._bandit_bucket(n), "large"))
+                    if policy != "measured" or (cell and min(cell.values())
+                                                >= eng.BANDIT_MIN_SAMPLES):
+                        break
+                cycles = eng.spec_cycles_total
+                emitted = eng.spec_cycle_tokens_total
+                outs, tok_s = spec_round(eng, prompts[n], SPEC_NEW)
+                submitted += n
+                cycles = eng.spec_cycles_total - cycles
+                rows[n] = {"tok_s": tok_s, "outs": outs,
+                           "tokens_per_cycle": (
+                               (eng.spec_cycle_tokens_total - emitted) / cycles
+                               if cycles else None)}
+            stats = eng.stats()
+            return {"rows": rows, "stats": {
+                k: stats[k] for k in ("spec_cycles_total",
+                                      "spec_tokens_per_cycle",
+                                      "spec_bandit_tok_s")}}, submitted
+        return drive
+
+    policies = {}
+    for policy in ("plain", "always", "measured"):
+        kw = {} if policy == "plain" else dict(
+            draft_params=draft, draft_cfg=dcfg, draft_tokens=SPEC_K,
+            spec_policy=policy)
+        policies[policy] = engine_run(params, cfg, kw, bf16_drive(policy))
+    for policy in ("always", "measured"):
+        for n, row in policies[policy]["rows"].items():
+            plain = policies["plain"]["rows"][n]["outs"]
+            pairs = [(a, b) for x, y in zip(row["outs"], plain)
+                     for a, b in zip(x, y)]
+            row["greedy_equal_share"] = sum(a == b for a, b in pairs) / len(pairs)
+    for policy, res in policies.items():
+        for n, row in res["rows"].items():
+            del row["outs"]
+        print(f"speculative drive on {card}, bf16, {policy}: " + "; ".join(
+            f"{n} rows {row['tok_s']:.1f} tok/s"
+            + (f", {row['tokens_per_cycle']:.3f} tokens a row-cycle"
+               if row.get("tokens_per_cycle") else "")
+            + (f", greedy equal to plain {row['greedy_equal_share']:.4f}"
+               if "greedy_equal_share" in row else "")
+            for n, row in res["rows"].items()) + f"; stats {res['stats']}")
+    print(f"speculative path launches {launches} ({admissions} prefills)")
+    if launches != {**dict.fromkeys(launches, 0),
+                    "flash_fwd": cfg.n_layers * admissions}:
+        raise AssertionError(f"speculative path launches {launches} for "
+                             f"{admissions} prefills")
+    return {"distilled": distilled, "policies": policies,
+            "launches": launches, "distill_launches": distill_launches,
+            "f32_tokens_per_cycle": f32_tpc,
+            "f32_self_draft_tokens_per_cycle": self_tpc}
+
+
+def distill_cli_phase(card: str) -> dict:
+    """``python -m nanotpu_torch.models.distill`` once, briefly: its last
+    line must be its JSON result."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "nanotpu_torch.models.distill", "--steps",
+            "4", "--batch", "4", "--seq", "64", "--eval-new-tokens", "32",
+            "--eval-batch", "4", "--eval-pairs", "1", "--full-ffn"]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=here, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"distill CLI failed: {res.stderr[-2000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"distill CLI on {card} in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(out)}")
+    return out
 
 
 def reset_launches() -> None:
@@ -805,13 +1300,19 @@ def main() -> None:
     bwd = backward_phase(card)
     serve = serving_phase(card)
     parity_phase()
+    int8 = int8_serving_phase(card, serve["greedy"])
+    server_cli_phase(card)
+    spec = speculative_phase(card)
+    distill_cli_phase(card)
     trained = training_phase(card)
     two_pass = two_pass_phase()
     train_parity_phase()
 
     # each path's launches, counted from 0 just before it ran and read just
     # after; "launches" is their sum
-    by_path = {"serving": serve["launches"], "train": trained["launches"],
+    by_path = {"serving": serve["launches"], "int8_serving": int8["launches"],
+               "distill": spec["distill_launches"],
+               "speculative": spec["launches"], "train": trained["launches"],
                "two_pass": two_pass}
 
     def launches(name):

@@ -102,32 +102,40 @@ def _layer_with_cache(layer, x, cfg, cos, sin, k_cache, v_cache, start: int,
 
 
 def _run(params, tokens, cfg, cache: KVCache, full_prefill: bool = False,
-         return_all: bool = False):
+         return_all: bool = False, head: bool = True):
     """Shared prefill/step body: tokens [B,S] appended at cache.length.
-    ``return_all`` returns logits for every fed position [B,S,V], else
-    last-token logits [B,V]."""
+    ``return_all`` returns logits for every fed position [B,S,V] (the
+    speculative verify needs them all), else last-token logits [B,V].
+    ``head=False`` skips the final norm and lm_head and returns
+    ``(None, cache)``: for callers that only prime the cache (a speculative
+    draft's prefill), whose discarded projection can cost more than the
+    shallow draft itself."""
     S = tokens.shape[1]
     start = cache.length
     positions = start + torch.arange(S, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_freqs(cfg, positions)
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
     for i, layer in enumerate(params["layers"]):
         x = _layer_with_cache(
             layer, x, cfg, cos, sin, cache.k[i], cache.v[i], start,
             full_prefill=full_prefill,
         )
     new_cache = cache._replace(length=start + S)
+    if not head:
+        return None, new_cache
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     x_out = x if return_all else x[:, -1]
     return linear(x_out, params["lm_head"]).float(), new_cache
 
 
-def prefill(params, prompt: torch.Tensor, cfg: LlamaConfig, max_len: int):
+def prefill(params, prompt: torch.Tensor, cfg: LlamaConfig, max_len: int,
+            head: bool = True):
     """prompt [B,S] -> (last-token logits [B,V], primed cache). The cache
     starts empty, so attention is causal self-attention over the prompt,
-    through the flash kernel when ``attn_impl="flash"``."""
+    through the flash kernel when ``attn_impl="flash"``. ``head=False``
+    returns (None, cache)."""
     cache = KVCache.create(cfg, prompt.shape[0], max_len, device=prompt.device)
-    return _run(params, prompt, cfg, cache, full_prefill=True)
+    return _run(params, prompt, cfg, cache, full_prefill=True, head=head)
 
 
 def decode_step(params, token: torch.Tensor, cfg: LlamaConfig,
@@ -172,8 +180,11 @@ def warp_logits(logits: torch.Tensor, temperature: float, top_k: int = 0,
 def sample_categorical(logits: torch.Tensor,
                        generator: torch.Generator | None) -> torch.Tensor:
     """One draw per row from softmax(logits) by the Gumbel-max trick, as
-    ``jax.random.categorical`` draws; no host sync."""
+    ``jax.random.categorical`` draws; no host sync. The uniforms start at
+    the smallest normal float, as jax's do, so every noise term is finite:
+    a token whose logit is -inf (probability 0) is never drawn."""
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 

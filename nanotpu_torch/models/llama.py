@@ -26,6 +26,7 @@ from torch.utils.checkpoint import (
 )
 
 from nanotpu_torch import resolve_device
+from nanotpu_torch.models.quant import QArray, embedding_lookup, matmul
 from nanotpu_torch.ops.attention import NEG_INF, flash_attention
 from nanotpu_torch.tree import leaves
 
@@ -118,13 +119,19 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 # -- building blocks -------------------------------------------------------
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul that dispatches on int8-quantized weights (the serving path,
+    :mod:`nanotpu_torch.models.quant`); nothing else in the model knows
+    about quantization."""
+    if isinstance(w, QArray):
+        return matmul(x, w)
     return x @ w
 
 
-def embed_lookup(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Row gather from a plain embedding table, in the table's dtype."""
-    return w[tokens]
+def embed_lookup(w, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Row gather: a plain table in its own dtype, a quantized one in
+    ``dtype`` (the model's)."""
+    return embedding_lookup(w, tokens, dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -246,7 +253,7 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_freqs(cfg, positions)
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
     layer_fn = _remat_layer(cfg) if cfg.remat else decoder_layer
     for layer_params in params["layers"]:
         x = layer_fn(layer_params, x, cfg, cos, sin)

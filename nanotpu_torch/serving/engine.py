@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the KV-cache decode path: the
-plain-decode port of ``nanotpu/serving/engine.py``.
+port of ``nanotpu/serving/engine.py``.
 
 * **Slot-based batch.** The cache is [SLOTS, max_len] per layer, allocated
   once. A request is admitted into a free slot at prefill and evicted at
@@ -16,10 +16,18 @@ plain-decode port of ``nanotpu/serving/engine.py``.
   :func:`nanotpu_torch.models.generate._run` over the prompt padded to a
   bucket length, so a flash config's prefill launches the CUDA kernel once
   per layer; the row is then copied into its slot.
+* **int8** composes: ``linear`` dispatches on ``QArray`` leaves, so an
+  engine built from ``quantize_params(params)`` runs weight-only int8, and
+  ``kv_int8`` keeps the cache in int8 with one f32 scale per (row,
+  position, kv head). In eager PyTorch the attend dequantizes the whole
+  cache layer to the model's dtype first (XLA fuses that into the product).
+* **Per-row speculative decoding.** With ``draft_params`` a draft proposes
+  K tokens per cycle, the target verifies the whole slot batch in one
+  forward at per-row frontiers, and each row advances by its own
+  acceptance; a policy picks plain or speculative chunks per host sync.
 
-The cache is updated in place (the JAX engine donates its buffers to the
-same end). Speculative decoding, the int8 KV cache, MoE and meshes are not
-ported yet.
+The caches are updated in place (the JAX engine donates its buffers to the
+same end). MoE and meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,6 +62,12 @@ from nanotpu_torch.models.llama import (
     rms_norm,
     rope_freqs,
 )
+from nanotpu_torch.models.quant import absmax_scale
+from nanotpu_torch.models.speculative import (
+    _accepted_prefix,
+    rejection_step,
+    sample_probs,
+)
 from nanotpu_torch.ops import _build
 
 log = logging.getLogger("nanotpu_torch.serving")
@@ -83,6 +97,48 @@ class SlotCache(NamedTuple):
         )
 
 
+class SlotCache8(NamedTuple):
+    """int8 variant of :class:`SlotCache`: k/v stored int8 with one f32
+    scale per (row, position, kv head), half the bytes a decode step reads
+    from the cache."""
+
+    k: tuple  # per-layer int8 [SLOTS, max_len, KV, hd]
+    v: tuple
+    k_scale: tuple  # per-layer f32 [SLOTS, max_len, KV]
+    v_scale: tuple
+    lengths: torch.Tensor  # [SLOTS] int32
+
+    @staticmethod
+    def create(cfg, slots: int, max_len: int, device=None) -> "SlotCache8":
+        shape = (slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+        device = resolve_device(device)
+        L = cfg.n_layers
+
+        def zeros(shape, dtype):
+            return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                         for _ in range(L))
+
+        return SlotCache8(
+            k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+            k_scale=zeros(shape[:-1], torch.float32),
+            v_scale=zeros(shape[:-1], torch.float32),
+            lengths=torch.zeros((slots,), dtype=torch.int32, device=device),
+        )
+
+
+def quantize_kv(x):
+    """x [..., hd] -> (int8 values, f32 scale [...]): symmetric per-vector
+    absmax quantization, one (position, kv head) vector per cache entry."""
+    x = x.float()
+    scale = absmax_scale(x.abs().amax(dim=-1))
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def _attend_rows(q, k_cache, v_cache, base):
     """q [B,S,H,hd] against cache [B,T,KV,hd]; row b's s-th new token sits
     at position base[b]+s and attends positions <= itself. GQA stays
@@ -102,7 +158,8 @@ def _attend_rows(q, k_cache, v_cache, base):
 
 def _write_rows(cache_arr, new, offsets):
     """Write new [B, S, ...] into cache_arr [B, T, ...] at per-row offsets,
-    in place; returns cache_arr.
+    in place; returns cache_arr. Rank-generic: serves the [T, KV, hd] value
+    caches and the [T, KV] scale planes.
 
     Keeps ``dynamic_update_slice``'s clamp: a row's start is
     ``min(offset, T - S)``. INVARIANT (never-read-after-freeze): an offset
@@ -120,18 +177,39 @@ def _write_rows(cache_arr, new, offsets):
     return cache_arr
 
 
-def _rows_forward(params, cfg, cache: SlotCache, tokens, advance):
+def _cache_update_and_views(cache, i, k, v, dtype):
+    """Write this step's k/v into layer i of either cache flavour at each
+    row's frontier; returns the full-cache k and v to attend (for the int8
+    cache, dequantized to ``dtype``)."""
+    if isinstance(cache, SlotCache8):
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        for arr, new in ((cache.k[i], kq), (cache.k_scale[i], ks),
+                         (cache.v[i], vq), (cache.v_scale[i], vs)):
+            _write_rows(arr, new, cache.lengths)
+        return (dequantize_kv(cache.k[i], cache.k_scale[i], dtype),
+                dequantize_kv(cache.v[i], cache.v_scale[i], dtype))
+    return (_write_rows(cache.k[i], k, cache.lengths),
+            _write_rows(cache.v[i], v, cache.lengths))
+
+
+def _rows_forward(params, cfg, cache, tokens, advance, head: bool = True):
     """Forward ``tokens [B, S]`` fed at each row's frontier; returns
     (logits [B, S, V] fp32, cache with per-row lengths advanced by
-    ``advance [B]``). k/v for all S positions are written at each row's
-    current frontier regardless of ``advance``; frozen rows (advance 0)
-    still write, see the invariant on :func:`_write_rows`."""
+    ``advance [B]``). The shared body of the plain decode step (S=1) and
+    the speculative draft and verify steps (S=K+1): k/v for all S positions
+    are written at each row's current frontier regardless of ``advance``,
+    and positions past the advanced length are stale until the next write
+    at that row's length overwrites them (the speculative rollback).
+    Frozen rows (advance 0) still write, see the invariant on
+    :func:`_write_rows`. ``head=False`` skips the final norm and lm_head and
+    returns (None, cache): the draft's cache-extension step."""
     B, S = tokens.shape
     positions = cache.lengths[:, None] + torch.arange(
         S, dtype=torch.int32, device=tokens.device
     )[None, :]
     cos, sin = rope_freqs(cfg, positions)
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     for i, layer in enumerate(params["layers"]):
         attn = layer["attn"]
@@ -141,12 +219,13 @@ def _rows_forward(params, cfg, cache: SlotCache, tokens, advance):
         v = linear(h, attn["wv"]).reshape(B, S, KV, hd)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        k_view = _write_rows(cache.k[i], k, cache.lengths)
-        v_view = _write_rows(cache.v[i], v, cache.lengths)
+        k_view, v_view = _cache_update_and_views(cache, i, k, v, x.dtype)
         out = _attend_rows(q, k_view, v_view, cache.lengths)
         x = x + linear(out.reshape(B, S, H * hd), attn["wo"])
         x = x + mlp(layer["mlp"], rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
     new_cache = cache._replace(lengths=cache.lengths + advance.to(torch.int32))
+    if not head:
+        return None, new_cache
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return linear(x, params["lm_head"]).float(), new_cache  # [B,S,V]
 
@@ -163,8 +242,8 @@ def _warp_rows(logits, temps, top_k: int, top_p: float):
     return sl
 
 
-def serving_step(params, cfg, cache: SlotCache, tokens, active, temps,
-                 generator, top_k: int = 0, top_p: float = 1.0):
+def serving_step(params, cfg, cache, tokens, active, temps, generator,
+                 top_k: int = 0, top_p: float = 1.0):
     """One decode step for the whole slot batch.
 
     tokens/active/temps: [SLOTS]; returns (next_tokens [SLOTS], cache with
@@ -180,9 +259,9 @@ def serving_step(params, cfg, cache: SlotCache, tokens, active, temps,
     return torch.where(temps > 0, sampled, greedy), new_cache
 
 
-def serving_chunk(params, cfg, cache: SlotCache, tokens, done, temps,
-                  remaining, generator, n_steps: int, eos_id: int = -1,
-                  top_k: int = 0, top_p: float = 1.0):
+def serving_chunk(params, cfg, cache, tokens, done, temps, remaining,
+                  generator, n_steps: int, eos_id: int = -1, top_k: int = 0,
+                  top_p: float = 1.0):
     """``n_steps`` decode steps with tokens/done/remaining kept on the
     device (the JAX engine's ``lax.scan`` chunk as a loop): no step waits
     on the host. A row freezes when it emits ``eos_id`` or its
@@ -205,6 +284,126 @@ def serving_chunk(params, cfg, cache: SlotCache, tokens, done, temps,
             done = done | (tokens == eos_id)
         toks.append(tokens)
     return cache, tokens, done, remaining, torch.stack(toks)
+
+
+def speculative_serving_cycle(params, draft_params, cfg, dcfg, cache,
+                              d_cache, tokens, active, temps, generator,
+                              draft_tokens: int, top_k: int = 0,
+                              top_p: float = 1.0):
+    """One speculative cycle for the whole slot batch, each row advancing by
+    ITS OWN acceptance.
+
+    The draft proposes K tokens per row, plus one extension step that
+    writes d_K's cache entry (needed where a row accepts everything, stale
+    elsewhere); the target verifies every row's K+1 tokens in ONE forward
+    at per-row frontiers; greedy matching (temps <= 0) or rejection
+    sampling (temps > 0) decides each row's acceptance a_i, and row i emits
+    a_i+1 tokens and advances both caches by a_i+1. No host sync.
+
+    tokens/active/temps: [SLOTS]. Returns (cache, d_cache, next_tokens
+    [SLOTS], emit [SLOTS, K+1], counts [SLOTS]): counts[i] of emit[i] are
+    valid (0 for inactive rows)."""
+    B = tokens.shape[0]
+    K = draft_tokens
+    t_base, d_base = cache.lengths, d_cache.lengths
+    ones = torch.ones((B,), dtype=torch.int32, device=tokens.device)
+    zeros = torch.zeros_like(ones)
+
+    # -- draft: K proposals per row + the cache-extension step ------------
+    tok, drafts, qs = tokens, [], []
+    for _ in range(K):
+        logits, d_cache = _rows_forward(draft_params, dcfg, d_cache,
+                                        tok[:, None], ones)
+        q_warp = torch.softmax(
+            _warp_rows(logits[:, -1], temps, top_k, top_p), dim=-1)
+        sampled = sample_probs(q_warp, generator)
+        tok = torch.where(temps > 0, sampled,
+                          torch.argmax(logits[:, -1], dim=-1))
+        drafts.append(tok)
+        qs.append(q_warp)
+    drafts = torch.stack(drafts, dim=1)  # [B, K]
+    q_probs = torch.stack(qs, dim=1)  # [B, K, V]
+    _, d_cache = _rows_forward(draft_params, dcfg, d_cache, tok[:, None],
+                               zeros, head=False)
+
+    # -- target verifies cur + d1..dK in one per-row-frontier forward -----
+    verify = torch.cat([tokens[:, None], drafts], dim=1)  # [B, K+1]
+    v_logits, cache = _rows_forward(params, cfg, cache, verify, zeros)
+    greedy = torch.argmax(v_logits, dim=-1)  # [B, K+1]
+    flat = v_logits.reshape(B * (K + 1), -1)
+    p_all = torch.softmax(
+        _warp_rows(flat, temps.repeat_interleave(K + 1), top_k, top_p),
+        dim=-1,
+    ).reshape(B, K + 1, -1)
+    accepted, resampled = rejection_step(p_all[:, :K], q_probs, drafts,
+                                         generator)
+    a = torch.where(temps > 0, _accepted_prefix(accepted),
+                    _accepted_prefix(drafts == greedy[:, :K]))  # [B]
+
+    # the token at each row's emit position a: all accepted -> a bonus
+    # draw from the K+1-th target distribution; rejected at a -> the
+    # residual draw (sampled rows) or the target's greedy token
+    bonus = sample_probs(p_all[:, K], generator)
+    res_pad = torch.cat([resampled, resampled[:, -1:]], dim=1)
+    res_a = res_pad.gather(1, a[:, None])[:, 0]
+    greedy_a = greedy.gather(1, a[:, None])[:, 0]
+    tok_a = torch.where(temps > 0, torch.where(a == K, bonus, res_a),
+                        greedy_a)
+    # emit[i] = d1..d_{a_i}, tok_a_i, <junk beyond counts[i]>
+    emit = torch.cat([drafts, drafts[:, -1:]], dim=1)  # [B, K+1]
+    at_a = torch.arange(K + 1, device=emit.device)[None, :] == a[:, None]
+    emit = torch.where(at_a, tok_a[:, None], emit)
+
+    counts = torch.where(active, a + 1, 0).to(torch.int32)
+    cache = cache._replace(lengths=t_base + counts)
+    d_cache = d_cache._replace(lengths=d_base + counts)
+    nxt = emit.gather(1, torch.clamp(counts - 1, min=0)[:, None].long())[:, 0]
+    nxt = torch.where(active, nxt, tokens)
+    return cache, d_cache, nxt, emit, counts
+
+
+def speculative_serving_chunk(params, draft_params, cfg, dcfg, cache,
+                              d_cache, tokens, done, temps, remaining,
+                              generator, n_cycles: int, draft_tokens: int,
+                              eos_id: int = -1, top_k: int = 0,
+                              top_p: float = 1.0):
+    """``n_cycles`` speculative cycles with every carried value on the device
+    (the speculative analogue of :func:`serving_chunk`, with its freeze
+    rule, emitting up to K+1 tokens per row per cycle).
+
+    Returns (cache, d_cache, tokens, done, remaining, emits [n_cycles,
+    SLOTS, K+1], counts [n_cycles, SLOTS]), the last two still on the
+    device. A row freezes when its valid emitted prefix holds ``eos_id`` or
+    its budget runs out; per-cycle counts may overshoot ``remaining`` by up
+    to K, and the host replay trims to the budget."""
+    K = draft_tokens
+    emits, counts = [], []
+    for _ in range(n_cycles):
+        cache, d_cache, tokens, emit, count = speculative_serving_cycle(
+            params, draft_params, cfg, dcfg, cache, d_cache, tokens, ~done,
+            temps, generator, K, top_k=top_k, top_p=top_p,
+        )
+        remaining = remaining - count
+        done = done | (remaining <= 0)
+        if eos_id >= 0:
+            valid = torch.arange(K + 1, device=emit.device)[None, :] < count[:, None]
+            done = done | (valid & (emit == eos_id)).any(dim=1)
+        emits.append(emit)
+        counts.append(count)
+    return (cache, d_cache, tokens, done, remaining, torch.stack(emits),
+            torch.stack(counts))
+
+
+def prefill_cache_only(params, cfg, prompt_padded, max_len: int):
+    """Prefill that only primes cache rows, no lm_head (the speculative
+    draft's admission path). Takes a [B, S] batch (the re-prime path's
+    rows of one bucket in one call); returns (k rows, v rows) for
+    :func:`insert_request` (B=1) or :func:`insert_rows`."""
+    cache = KVCache.create(cfg, prompt_padded.shape[0], max_len,
+                           device=prompt_padded.device)
+    _, cache = _run(params, prompt_padded, cfg, cache, full_prefill=True,
+                    head=False)
+    return cache.k, cache.v
 
 
 def prefill_request(params, cfg, prompt_padded, true_len: int, max_len: int,
@@ -230,15 +429,47 @@ def prefill_request(params, cfg, prompt_padded, true_len: int, max_len: int,
     return first[0], cache.k, cache.v
 
 
-def insert_request(cache: SlotCache, ks, vs, slot: int,
-                   length: int) -> SlotCache:
+def _cache_planes(cache, ks, vs):
+    """(cache array, row values) pairs of every layer: k and v, and for the
+    int8 cache the rows quantized (once, here) and their scale planes."""
+    if isinstance(cache, SlotCache8):
+        kq = [quantize_kv(rk) for rk in ks]
+        vq = [quantize_kv(rv) for rv in vs]
+        return (list(zip(cache.k, (q for q, _ in kq)))
+                + list(zip(cache.v, (q for q, _ in vq)))
+                + list(zip(cache.k_scale, (s for _, s in kq)))
+                + list(zip(cache.v_scale, (s for _, s in vq))))
+    return list(zip(cache.k, ks)) + list(zip(cache.v, vs))
+
+
+def insert_request(cache, ks, vs, slot: int, length: int):
     """Copy a prefilled row into ``slot`` in place (no copy of the other
-    slots) and set its length."""
-    for ck, rk in zip(cache.k, ks):
-        ck[slot] = rk[0]
-    for cv, rv in zip(cache.v, vs):
-        cv[slot] = rv[0]
+    slots) and set its length. Positions past the prompt carry garbage
+    that stays beyond the row's frontier."""
+    for arr, row in _cache_planes(cache, ks, vs):
+        arr[slot] = row[0]
     cache.lengths[slot] = length
+    return cache
+
+
+def insert_rows(cache, ks, vs, slots, lengths):
+    """Batched :func:`insert_request`: row j of the prefilled batch goes to
+    slot ``slots[j]`` with length ``lengths[j]`` (host sequences). A row
+    whose slot lies outside [0, SLOTS) is dropped, as the JAX engine's
+    ``mode="drop"`` scatter drops it: on a card an out-of-range index would
+    be a device-side assert that ends the process's CUDA context."""
+    n_slots = cache.lengths.shape[0]
+    keep = [j for j, s in enumerate(slots) if 0 <= int(s) < n_slots]
+    if not keep:
+        return cache
+    device = cache.lengths.device
+    rows = torch.tensor(keep, dtype=torch.long, device=device)
+    dest = torch.tensor([int(slots[j]) for j in keep], dtype=torch.long,
+                        device=device)
+    for arr, new in _cache_planes(cache, ks, vs):
+        arr[dest] = new.index_select(0, rows).to(arr.dtype)
+    cache.lengths[dest] = torch.tensor([int(lengths[j]) for j in keep],
+                                       dtype=torch.int32, device=device)
     return cache
 
 
@@ -318,21 +549,42 @@ class Engine:
     stops a row early. ``top_k``/``top_p`` apply engine-wide to sampled
     (temperature > 0) rows; temperature is per request. ``params`` must
     already sit on ``device`` (``cuda`` unless the caller names another).
+    ``kv_int8`` keeps the target's cache in int8. ``draft_params`` (with
+    ``draft_cfg``) turns on per-row speculative decoding with
+    ``draft_tokens`` proposals per cycle, under ``spec_policy``:
+
+    * ``"auto"``: speculate only at <= 2 active rows, plain chunks above;
+    * ``"always"``: speculate at every occupancy;
+    * ``"off"``: plain chunks only;
+    * ``"measured"``: pick plain or speculative per sync from the engine's
+      own tokens/s per occupancy bucket (:meth:`_bandit_pick`);
+    * ``[(max_active, K), ...]``: the first rule whose max_active covers
+      the active rows decides K (at most ``draft_tokens``); none, plain.
+
+    The draft's cache is always plain, whatever ``kv_int8`` says: at one or
+    two layers it is small next to the target's.
     """
 
-    #: EWMA weight of one new tokens/s sample
-    EWMA_ALPHA = 0.3
+    #: EWMA weight of one new tokens/s sample (the engine's rate and the
+    #: measured policy's arms); the last ~6 chunks dominate
+    BANDIT_ALPHA = 0.3
+    #: per-arm samples required before exploitation starts
+    BANDIT_MIN_SAMPLES = 3
+    #: re-probe a losing arm every N syncs per bucket (tracks drift)
+    BANDIT_PROBE_EVERY = 12
 
     def __init__(self, params, cfg, slots: int = 8, max_len: int | None = None,
                  buckets: tuple = DEFAULT_BUCKETS, eos_id: int = -1,
                  top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                  chunk_steps: int = 32, chunk_steps_max: int = 96,
-                 device=None):
+                 kv_int8: bool = False, draft_params=None, draft_cfg=None,
+                 draft_tokens: int = 4, spec_policy="auto", device=None):
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
+        # the norm gains are never quantized: their device is the tree's
+        on = params["final_norm"].device
+        if on.type != self.device.type:
             raise ValueError(
-                f"params live on {params['embed'].device}, the engine on "
-                f"{self.device}"
+                f"params live on {on}, the engine on {self.device}"
             )
         self.params = params
         self.cfg = cfg
@@ -344,14 +596,77 @@ class Engine:
         self.eos_id = eos_id
         self.top_k = top_k
         self.top_p = top_p
-        #: decode steps per host sync: the small chunk keeps admission
-        #: latency low while requests queue; the large one amortizes the
-        #: per-chunk sync when every row has a long runway
+        #: decode steps (speculative: cycles) per host sync: the small chunk
+        #: keeps admission latency low while requests queue; the large one
+        #: amortizes the per-chunk sync when every row has a long runway
         self.chunk_steps = max(1, chunk_steps)
         self.chunk_steps_max = max(self.chunk_steps, chunk_steps_max)
 
-        self._cache = SlotCache.create(cfg, slots, self.max_len,
+        self.kv_int8 = kv_int8
+        cache_cls = SlotCache8 if kv_int8 else SlotCache
+        self._cache = cache_cls.create(cfg, slots, self.max_len,
                                        device=self.device)
+
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.draft_tokens = draft_tokens
+        self._measured = spec_policy == "measured" and draft_params is not None
+        if draft_params is None or spec_policy == "off":
+            if draft_params is None and spec_policy != "off":
+                # "auto" is the default, so a plain engine built with no
+                # speculation settings notes it at INFO only
+                log.log(
+                    logging.INFO if spec_policy == "auto" else logging.WARNING,
+                    "spec_policy=%r requested but draft_params is None: "
+                    "speculative decoding is DISABLED, falling back to "
+                    "plain decoding (pass draft_params+draft_cfg, or "
+                    "spec_policy='off' to silence this)",
+                    spec_policy,
+                )
+            rules: list[tuple[int, int]] = []
+        elif spec_policy in ("measured", "always"):
+            rules = [(slots, draft_tokens)]
+        elif spec_policy == "auto":
+            rules = [(2, draft_tokens)]
+        else:
+            rules = sorted((int(m), int(k)) for m, k in spec_policy)
+            for _, k in rules:
+                if not 1 <= k <= draft_tokens:
+                    raise ValueError(
+                        f"spec_policy K={k} outside [1, draft_tokens="
+                        f"{draft_tokens}]"
+                    )
+        self.spec_rules = rules
+        #: the K the policy can select, and 0 (plain) when an occupancy
+        #: falls through the rules or the bandit needs its plain arm
+        variant_ks = sorted({k for _, k in rules})
+        if not rules or rules[-1][0] < slots or self._measured:
+            variant_ks = [0] + variant_ks
+        self._variant_ks = variant_ks
+        #: measured-policy state, keyed by (occupancy bucket, chunk
+        #: flavour): {k: EWMA tokens/s}, sample counts, and a sync counter
+        #: for re-probes. Small and large chunks never share a cell: their
+        #: per-sync overhead differs by about their size ratio.
+        self._bandit_rate: dict[tuple[int, str], dict[int, float | None]] = {}
+        self._bandit_n: dict[tuple[int, str], dict[int, int]] = {}
+        self._bandit_t: dict[tuple[int, str], int] = {}
+        #: (k, flavour) chunks that have run at least once: the first run's
+        #: sample carries first-launch costs and is dropped
+        self._chunk_seen: set[tuple[int, str]] = set()
+        #: slots whose draft row trails the target (plain chunks ran while
+        #: they were active); re-primed before the next speculative chunk
+        self._draft_stale: set[int] = set()
+        #: speculative cycles run (per active row) and the tokens they
+        #: emitted: tokens/cycle - 1 is the realized acceptance x K
+        self.spec_cycles_total = 0
+        self.spec_cycle_tokens_total = 0
+        self._d_cache = None
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            self._d_cache = SlotCache.create(draft_cfg, slots, self.max_len,
+                                             device=self.device)
+
         self._slot_req: list[Request | None] = [None] * slots
         # host mirrors of per-row decode state; re-uploaded when _dirty
         self._tokens = np.zeros((slots,), np.int64)  # last token per slot
@@ -372,8 +687,8 @@ class Engine:
         # stats (served by /metrics and /v1/stats)
         self.requests_total = 0
         self.tokens_total = 0
-        #: realized decode tokens/s EWMA over decode chunks; None until the
-        #: first chunk. Read/written under self._cv.
+        #: realized decode tokens/s EWMA over warm decode chunks; None until
+        #: the first. Read/written under self._cv.
         self.tok_s_ewma: float | None = None
         self.ttft_samples: deque[float] = deque(maxlen=4096)
         self.latency_samples: deque[float] = deque(maxlen=4096)
@@ -419,7 +734,8 @@ class Engine:
 
     def wait_warm(self, timeout: float | None = None) -> bool:
         """Block until the kernel library is built and one warm-up prefill
-        and decode step have run, so neither lands inside the first
+        and decode chunk (and with a draft, one draft prefill and one
+        speculative cycle) have run, so none lands inside the first
         request's time to first token."""
         ready = self._warm.wait(timeout)
         if self._warm_error is not None:
@@ -460,13 +776,15 @@ class Engine:
         }
 
     def stats(self) -> dict:
-        """The JAX engine's ``/v1/stats`` fields; the speculation and MoE
-        fields are fixed (nothing here speculates or routes)."""
+        """The JAX engine's ``/v1/stats`` fields (the MoE counter is fixed
+        at 0: no MoE model is served here)."""
         m = self.metrics()
         with self._cv:
             queued = len(self._queue)
             ttft = sorted(self.ttft_samples)
             lat = sorted(self.latency_samples)
+            # copied under the lock: the loop adds buckets as it goes
+            bandit = {b: dict(arms) for b, arms in self._bandit_rate.items()}
         active = sum(1 for r in self._slot_req if r is not None)
 
         def pct(xs, p):
@@ -485,9 +803,25 @@ class Engine:
             "ttft_p50_ms": pct(ttft, 0.5) and round(pct(ttft, 0.5) * 1e3, 2),
             "ttft_p99_ms": pct(ttft, 0.99) and round(pct(ttft, 0.99) * 1e3, 2),
             "latency_p50_ms": pct(lat, 0.5) and round(pct(lat, 0.5) * 1e3, 2),
-            "spec_cycles_total": 0,
-            "spec_tokens_per_cycle": None,
-            "spec_bandit_tok_s": None,
+            # mean emitted tokens per speculative cycle (1 + realized
+            # acceptance x K); None until a speculative chunk has run
+            "spec_cycles_total": self.spec_cycles_total,
+            "spec_tokens_per_cycle": (
+                round(self.spec_cycle_tokens_total / self.spec_cycles_total,
+                      3)
+                if self.spec_cycles_total else None
+            ),
+            # the measured policy's arm table, keys "occupancy/flavour"
+            "spec_bandit_tok_s": (
+                {
+                    f"{b[0]}/{b[1]}": {
+                        str(k): (r if r is None else round(r, 1))
+                        for k, r in arms.items()
+                    }
+                    for b, arms in bandit.items()
+                }
+                if self._measured else None
+            ),
         }
 
     # -- engine loop -------------------------------------------------------
@@ -499,8 +833,9 @@ class Engine:
 
     def _warm_up(self) -> None:
         """Build the kernel library and run one prefill at the smallest
-        bucket plus one decode step with every slot frozen (writes land in
-        empty rows, which admission overwrites whole)."""
+        bucket plus one decode chunk with every slot frozen (writes land in
+        empty rows, which admission overwrites whole); with a draft, one
+        draft prefill and one speculative cycle too."""
         if self.device.type == "cuda":
             _build.build_all()
         padded = torch.zeros((1, self.buckets[0]), dtype=torch.long,
@@ -513,6 +848,15 @@ class Engine:
             self.params, self.cfg, self._cache, zeros, frozen,
             zeros.float(), zeros.int(), self._gen, n_steps=1,
         )
+        if self.draft_params is not None and self.spec_rules:
+            prefill_cache_only(self.draft_params, self.draft_cfg, padded,
+                               self.max_len)
+            self._cache, self._d_cache, *_ = speculative_serving_chunk(
+                self.params, self.draft_params, self.cfg, self.draft_cfg,
+                self._cache, self._d_cache, zeros, frozen, zeros.float(),
+                zeros.int(), self._gen, n_cycles=1,
+                draft_tokens=max(self._variant_ks),
+            )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -520,6 +864,9 @@ class Engine:
         """Move queued requests into free slots. Prefills are enqueued per
         request, and their first tokens come back in ONE stacked fetch."""
         admitted: list[tuple[Request, int, torch.Tensor]] = []
+        # speculative mode reserves K+1 positions for the last cycle's
+        # write overshoot
+        slack = self.draft_tokens + 1 if self.draft_params is not None else 0
         while True:
             slot = next(
                 (i for i, r in enumerate(self._slot_req) if r is None
@@ -534,17 +881,34 @@ class Engine:
                 req = self._queue.popleft()
             S = len(req.prompt)
             # cap generation to the cache row; the floor of 1 keeps a
-            # near-max_len prompt at one prefill token, no decode steps
+            # near-max_len prompt at one prefill token, no decode steps (a
+            # one-token budget freezes before any speculative cycle writes)
             req.max_new_tokens = max(1, min(req.max_new_tokens,
-                                            self.max_len - S))
+                                            self.max_len - S - slack))
             padded = np.zeros((1, self._bucket(S)), np.int64)
             padded[0, :S] = req.prompt
+            padded = torch.from_numpy(padded).to(self.device)
             first, ks, vs = prefill_request(
-                self.params, self.cfg,
-                torch.from_numpy(padded).to(self.device), S, self.max_len,
+                self.params, self.cfg, padded, S, self.max_len,
                 req.temperature, self._gen, top_k=self.top_k, top_p=self.top_p,
             )
             self._cache = insert_request(self._cache, ks, vs, slot, S)
+            if self._d_cache is not None:
+                # prime the draft row only when the occupancy after this
+                # admission could speculate (the measured policy always
+                # may); otherwise regime entry re-primes it
+                occ_after = sum(
+                    1 for r in self._slot_req if r is not None
+                ) + len(admitted) + 1
+                if self._measured or self._policy_k(occ_after) > 0:
+                    dks, dvs = prefill_cache_only(
+                        self.draft_params, self.draft_cfg, padded,
+                        self.max_len)
+                    self._d_cache = insert_request(self._d_cache, dks, dvs,
+                                                   slot, S)
+                    self._draft_stale.discard(slot)
+                else:
+                    self._draft_stale.add(slot)
             admitted.append((req, slot, first))
         if not admitted:
             return
@@ -572,10 +936,101 @@ class Engine:
             self._remaining[slot] = req.max_new_tokens - 1  # first already out
             self._dirty = True
 
+    def _policy_k(self, n_active: int, flavor: str = "large") -> int:
+        """Speculation depth for a chunk at ``n_active`` occupied slots:
+        the first rule covering the count decides; none -> 0 (plain).
+        ``flavor`` picks the measured policy's arm table."""
+        if self._measured:
+            return self._bandit_pick(n_active, flavor)
+        for max_active, rule_k in self.spec_rules:
+            if n_active <= max_active:
+                return rule_k
+        return 0
+
+    @staticmethod
+    def _bandit_bucket(n_active: int) -> int:
+        """Occupancy bucket: 1, 2, 3-4, 5-8, 9-16, ... (powers of two)."""
+        b = 1
+        while b < n_active:
+            b *= 2
+        return b
+
+    def _bandit_pick(self, n_active: int, flavor: str = "large") -> int:
+        """Measured policy: explore under-sampled arms, then exploit the
+        best EWMA tokens/s of this (occupancy bucket, chunk flavour) cell,
+        re-probing the stalest loser every BANDIT_PROBE_EVERY syncs. Greedy
+        outputs are the same on every arm, so exploring changes no emitted
+        token."""
+        b = (self._bandit_bucket(n_active), flavor)
+        with self._cv:  # stats() snapshots the tables under this lock
+            rate = self._bandit_rate.setdefault(
+                b, {k: None for k in self._variant_ks})
+            n = self._bandit_n.setdefault(b, {k: 0 for k in self._variant_ks})
+            for k in self._variant_ks:
+                if n[k] < self.BANDIT_MIN_SAMPLES:
+                    return k
+            t = self._bandit_t.get(b, 0) + 1
+            self._bandit_t[b] = t
+            best = max(rate, key=lambda k: rate[k])
+            if t % self.BANDIT_PROBE_EVERY == 0:
+                losers = [k for k in self._variant_ks if k != best]
+                if losers:
+                    return min(losers, key=lambda k: n[k])
+            return best
+
+    def _bandit_update(self, n_active: int, k: int, tokens: int, dt: float,
+                       flavor: str = "large", cold: bool = False) -> None:
+        """Fold one chunk's tokens/s into its (bucket, flavour, arm) EWMA.
+        ``cold`` marks the first run of that chunk, whose time holds
+        first-launch costs: dropped."""
+        if cold or not self._measured or tokens <= 0 or dt <= 0:
+            return
+        b = (self._bandit_bucket(n_active), flavor)
+        r = tokens / dt
+        with self._cv:
+            rate = self._bandit_rate.setdefault(
+                b, {arm: None for arm in self._variant_ks})
+            n = self._bandit_n.setdefault(
+                b, {arm: 0 for arm in self._variant_ks})
+            cur = rate[k]
+            rate[k] = (r if cur is None else
+                       (1 - self.BANDIT_ALPHA) * cur + self.BANDIT_ALPHA * r)
+            n[k] += 1
+
+    def _reprime_draft(self) -> None:
+        """Catch stale draft rows up to the target's frontier: the
+        admission-time draft prefill re-run over each row's prompt and
+        emitted tokens (all but the last, the next input), batched by
+        bucket: one draft forward and one insert per bucket, over exactly
+        the stale rows of that bucket. Numeric wobble between a prefilled
+        and an incrementally built draft row only perturbs proposals, never
+        emitted tokens."""
+        by_bucket: dict[int, list[tuple[int, int, list[int]]]] = {}
+        for i in sorted(self._draft_stale):
+            req = self._slot_req[i]
+            if req is None or self._done[i]:
+                continue
+            seq = req.prompt + req.out
+            t_len = len(seq) - 1
+            by_bucket.setdefault(self._bucket(t_len), []).append(
+                (i, t_len, seq))
+        self._draft_stale.clear()
+        for bucket, rows in by_bucket.items():
+            padded = np.zeros((len(rows), bucket), np.int64)
+            for j, (_, t_len, seq) in enumerate(rows):
+                padded[j, :t_len] = seq[:t_len]
+            dks, dvs = prefill_cache_only(
+                self.draft_params, self.draft_cfg,
+                torch.from_numpy(padded).to(self.device), self.max_len)
+            self._d_cache = insert_rows(
+                self._d_cache, dks, dvs, [i for i, _, _ in rows],
+                [t_len for _, t_len, _ in rows])
+
     def _decode_cycle(self) -> None:
-        """One chunk of decode steps, then host-side bookkeeping. The
-        device carries tokens/done/remaining between chunks; the host
-        mirrors go up only when admission or eviction changed them."""
+        """One chunk of decode steps or speculative cycles, then host-side
+        bookkeeping. The device carries tokens/done/remaining between
+        chunks; the host mirrors go up only when admission or eviction
+        changed them, and the chunk's tokens come back in one fetch."""
         if self._dirty:
             def up(a):
                 return torch.from_numpy(a).to(self.device)
@@ -590,33 +1045,78 @@ class Engine:
         # admission latency: a finished row is refilled only at a sync.
         with self._cv:
             queued = bool(self._queue)
-        n_steps = self.chunk_steps if queued else self.chunk_steps_max
-        # no row owes more than this many tokens, so later steps would only
-        # recompute frozen rows (the device still freezes rows at eos)
-        n_steps = min(n_steps, int(self._remaining[~self._done].max(initial=1)))
+        flavor = "small" if queued else "large"
+        # the policy decides per sync, from the live occupancy, so a
+        # request can cross regimes mid-stream
+        n_active = sum(r is not None for r in self._slot_req)
+        k = self._policy_k(n_active, flavor)
+        # no row owes more than this many tokens, and a step or cycle emits
+        # at least one a row, so later ones would only recompute frozen rows
+        owed = int(self._remaining[~self._done].max(initial=1))
+        n_units = min(self.chunk_steps if queued else self.chunk_steps_max,
+                      owed)
+        if k > 0 and self._draft_stale:
+            self._reprime_draft()
+        # timed after the re-prime: the bandit estimates each arm's steady
+        # rate, and a switch-only re-prime would sink the speculative arm
         t_chunk = time.perf_counter()
-        (
-            self._cache, self._d_tokens, self._d_done, self._d_remaining,
-            toks,
-        ) = serving_chunk(
-            self.params, self.cfg, self._cache, self._d_tokens,
-            self._d_done, self._d_temps, self._d_remaining, self._gen,
-            n_steps=n_steps, eos_id=self.eos_id, top_k=self.top_k,
-            top_p=self.top_p,
-        )
-        toks = toks.cpu().numpy()  # [n_steps, SLOTS]; the one host sync
+        cold = (k, flavor) not in self._chunk_seen
+        self._chunk_seen.add((k, flavor))
+        if k > 0:
+            (
+                self._cache, self._d_cache, self._d_tokens, self._d_done,
+                self._d_remaining, emits, counts,
+            ) = speculative_serving_chunk(
+                self.params, self.draft_params, self.cfg, self.draft_cfg,
+                self._cache, self._d_cache, self._d_tokens, self._d_done,
+                self._d_temps, self._d_remaining, self._gen, n_cycles=n_units,
+                draft_tokens=k, eos_id=self.eos_id, top_k=self.top_k,
+                top_p=self.top_p,
+            )
+            # emits [n_cycles, SLOTS, K+1] and counts [n_cycles, SLOTS] in
+            # the one host sync
+            host = torch.cat([emits.flatten(), counts.flatten().long()])
+            host = host.cpu().numpy()
+            emits = host[:emits.numel()].reshape(emits.shape)
+            counts = host[emits.size:].reshape(counts.shape)
+            self.spec_cycles_total += int((counts > 0).sum())
+            self.spec_cycle_tokens_total += int(counts.sum())
+
+            def row_tokens(i):
+                return [int(t) for c in range(emits.shape[0])
+                        for t in emits[c, i, :counts[c, i]]]
+        else:
+            (
+                self._cache, self._d_tokens, self._d_done, self._d_remaining,
+                toks,
+            ) = serving_chunk(
+                self.params, self.cfg, self._cache, self._d_tokens,
+                self._d_done, self._d_temps, self._d_remaining, self._gen,
+                n_steps=n_units, eos_id=self.eos_id, top_k=self.top_k,
+                top_p=self.top_p,
+            )
+            toks = toks.cpu().numpy()  # [n_steps, SLOTS]; the one host sync
+            if self.spec_rules:
+                # the target moved on and the draft did not
+                self._draft_stale.update(
+                    i for i, r in enumerate(self._slot_req) if r is not None)
+
+            def row_tokens(i):
+                return [int(t) for t in toks[:, i]]
         now = time.perf_counter()
         toks_before = self.tokens_total
         # every row's carried token (frozen rows hold theirs)
-        self._tokens = toks[-1].astype(np.int64).copy()
+        for i in range(self.slots):
+            rt = row_tokens(i)
+            if rt:
+                self._tokens[i] = rt[-1]
         for i, req in enumerate(self._slot_req):
             if req is None:
                 continue
             # replay the device's freeze logic to pick the real tokens
-            for tok in toks[:, i]:
+            for tok in row_tokens(i):
                 if self._done[i]:
                     break
-                tok = int(tok)
                 req.out.append(tok)
                 self.tokens_total += 1
                 self._remaining[i] -= 1
@@ -631,17 +1131,21 @@ class Engine:
                     self.latency_samples.append(req.latency_s)
                 self._slot_req[i] = None
                 self._temps[i] = 0.0
+                self._draft_stale.discard(i)  # evicted: nothing to re-prime
             else:
                 req._notify_progress()
         emitted = self.tokens_total - toks_before
         dt = now - t_chunk
-        if emitted > 0 and dt > 0:
+        self._bandit_update(n_active, k, emitted, dt, flavor=flavor,
+                            cold=cold)
+        if not cold and emitted > 0 and dt > 0:
             rate = emitted / dt
             with self._cv:  # metrics()/stats() read concurrently
                 cur = self.tok_s_ewma
                 self.tok_s_ewma = (
                     rate if cur is None
-                    else (1 - self.EWMA_ALPHA) * cur + self.EWMA_ALPHA * rate
+                    else (1 - self.BANDIT_ALPHA) * cur
+                    + self.BANDIT_ALPHA * rate
                 )
 
     def _loop(self) -> None:

@@ -25,6 +25,7 @@ import torch
 from nanotpu_torch import resolve_device
 from nanotpu_torch.metrics.registry import Registry
 from nanotpu_torch.models.llama import LlamaConfig, init_params
+from nanotpu_torch.models.quant import quantize_params
 from nanotpu_torch.serving.engine import Engine
 from nanotpu_torch.serving.http import serve
 
@@ -164,45 +165,64 @@ class ServingAPI:
         yield f"data: {json.dumps(stats)}\n\n"
 
 
-def build_engine(preset: str, slots: int, max_len: int, eos_id: int = -1,
-                 seed: int = 0, dtype: str | None = None, device=None,
-                 **engine_kw) -> Engine:
-    """An engine over random weights drawn from a seeded generator on
-    ``device`` (``cuda`` unless named), for nanotpu's serving presets;
-    ``dtype`` overrides the preset's."""
-    device = resolve_device(device)
+def serving_config(preset: str, max_len: int) -> LlamaConfig:
+    """The model of one of nanotpu's serving presets: ``flagship`` (vocab
+    32768, dim 1024, 12 layers, 16/8 heads, bf16, flash prefill) or
+    ``tiny``."""
     if preset == "flagship":
-        cfg = LlamaConfig(
+        return LlamaConfig(
             vocab_size=32768, dim=1024, n_layers=12, n_heads=16,
             n_kv_heads=8, ffn_dim=2816, max_seq_len=max_len,
             attn_impl="flash",
         )
-    elif preset == "tiny":
-        cfg = dataclasses.replace(LlamaConfig.tiny(), max_seq_len=max_len)
-    else:
-        raise ValueError(f"unknown preset {preset}")
+    if preset == "tiny":
+        return dataclasses.replace(LlamaConfig.tiny(), max_seq_len=max_len)
+    raise ValueError(f"unknown preset {preset}")
+
+
+def build_engine(preset: str, slots: int, max_len: int, eos_id: int = -1,
+                 seed: int = 0, dtype: str | None = None, device=None,
+                 quantize: bool = False, kv_int8: bool = False,
+                 **engine_kw) -> Engine:
+    """An engine over random weights drawn from a seeded generator on
+    ``device`` (``cuda`` unless named), for nanotpu's serving presets;
+    ``dtype`` overrides the preset's. ``quantize`` serves the weights
+    weight-only int8 (:func:`~nanotpu_torch.models.quant.quantize_params`),
+    ``kv_int8`` keeps the KV cache in int8."""
+    device = resolve_device(device)
+    cfg = serving_config(preset, max_len)
     if dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     generator = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, generator, device=device)
+    if quantize:
+        params = quantize_params(params)
     return Engine(params, cfg, slots=slots, max_len=max_len, eos_id=eos_id,
-                  device=device, **engine_kw)
+                  kv_int8=kv_int8, device=device, **engine_kw)
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("nanotpu-torch-serve")
     p.add_argument("--port", type=int, default=8100)
     p.add_argument("--preset", default="flagship")
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--max-len", type=int, default=2048)
+    p.add_argument("--int8", action="store_true", help="weight-only int8")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV cache (halves decode HBM reads)")
     p.add_argument("--eos-id", type=int, default=-1)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> None:
+    args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
     engine = build_engine(args.preset, args.slots, args.max_len,
-                          eos_id=args.eos_id, device=args.device)
+                          eos_id=args.eos_id, device=args.device,
+                          quantize=args.int8, kv_int8=args.kv_int8)
     engine.wait_warm()
     api = ServingAPI(engine)
     server = serve(api, args.port)

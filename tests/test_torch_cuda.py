@@ -11,7 +11,12 @@ want's row over the last axis (at least 1e-3): p and ds are rounded to bf16
 for their products, as on the TPU, and the fused pass sums dq (by tile
 in bf16, by element in f32) in no fixed order, while a dropped tile costs
 most of |want| in each row it touches; f32 1e-4 of the largest magnitude,
-at least 1."""
+at least 1.
+
+Serving extensions (int8 weights, int8 KV cache, speculative decoding): the
+same code on card tensors against CPU tensors, f32 with TF32 off (products
+within 1e-5 of their largest magnitude, bf16 within 2e-2; greedy tokens
+equal), and greedy speculative decoding equal to plain greedy in f32."""
 
 import dataclasses
 
@@ -20,6 +25,9 @@ import torch
 
 from nanotpu_torch.models import generate as tg
 from nanotpu_torch.models import llama as tl
+from nanotpu_torch.models import quant as tq
+from nanotpu_torch.models import speculative as tspec
+from nanotpu_torch.models.distill import draft_config, init_draft
 from nanotpu_torch.models.llama import LlamaConfig, init_params
 from nanotpu_torch.ops import attention as att
 from nanotpu_torch.ops.attention import attention_lse_ref, flash_attention
@@ -388,3 +396,125 @@ def test_bf16_dq_repeats_bit_for_bit(card, D):
     first = att.flash_bwd_dq(q, k, v, dout, lse, dvec, True)
     again = att.flash_bwd_dq(q, k, v, dout, lse, dvec, True)
     assert torch.equal(first, again)
+
+
+# -- serving extensions: int8 weights, int8 KV cache, speculation -----------
+
+def _serving_models(card):
+    """A small f32 target with flash prefill and its 1-layer draft (tied,
+    truncated init), on the card and as CPU copies."""
+    from nanotpu_torch.tree import map_tree
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=256, n_heads=4,
+                              n_kv_heads=2, max_seq_len=128,
+                              attn_impl="flash")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    dcfg = draft_config(cfg, n_layers=1, ffn_dim=cfg.ffn_dim)
+    draft = init_draft(torch.Generator().manual_seed(1), params, cfg, dcfg)
+    on_card = map_tree(lambda t: t.to(card), params)
+    d_card = map_tree(lambda t: t.to(card), draft)
+    for name in ("embed", "final_norm", "lm_head"):
+        d_card[name] = on_card[name]
+    return cfg, dcfg, (params, draft), (on_card, d_card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_in,n_out", [(1024, 2816), (2816, 1024),
+                                        (1024, 32768)])
+def test_quant_matmul_on_card_matches_cpu(card, dtype, n_in, n_out):
+    gen = torch.Generator().manual_seed(n_out)
+    w = torch.randn((n_in, n_out), generator=gen) / n_in ** 0.5
+    x = torch.randn((8, 1, n_in), generator=gen).to(dtype)
+    q = tq.quantize(w)
+    assert torch.equal(tq.quantize(w.to(card)).q.cpu(), q.q)
+    got = tq.matmul(x.to(card), tq.QArray(q.q.to(card), q.s.to(card)))
+    want = tq.matmul(x.float(), q)
+    err = (got.float().cpu() - want).abs().max() / want.abs().max()
+    assert got.dtype == dtype
+    assert err.item() <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_quantize_kv_on_card_matches_cpu(card):
+    from nanotpu_torch.serving.engine import quantize_kv
+
+    x = torch.randn((8, 300, 8, 64), generator=torch.Generator().manual_seed(3))
+    for dtype in (torch.bfloat16, torch.float32):
+        q, s = quantize_kv(x.to(dtype))
+        qc, sc = quantize_kv(x.to(dtype).to(card))
+        assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
+
+
+@pytest.mark.cuda
+def test_kv_int8_engine_on_card_matches_cpu(card):
+    """The int8-KV engine over int8 weights gives the same greedy tokens on
+    the card as on the CPU, flash prefill included."""
+    from nanotpu_torch.serving.engine import Engine, SlotCache8
+
+    cfg, _, (params, _), (on_card, _) = _serving_models(card)
+    prompts = [[3, 1, 4, 1, 5], list(range(40)), [9]]
+    outs = []
+    for tree, dev in ((params, "cpu"), (on_card, card)):
+        eng = Engine(tq.quantize_params(tree), cfg, slots=2, max_len=128,
+                     buckets=(16, 64), kv_int8=True, device=dev)
+        try:
+            outs.append([eng.generate(p, 12) for p in prompts])
+            assert isinstance(eng._cache, SlotCache8)
+        finally:
+            eng.stop()
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_speculative_greedy_equals_plain_f32_on_card(card):
+    from nanotpu_torch.serving.engine import Engine
+
+    cfg, dcfg, _, (params, draft) = _serving_models(card)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 20), device=card,
+                           generator=torch.Generator(device=card).manual_seed(2))
+    for K in (1, 4):
+        got = tspec.speculative_generate(params, draft, prompt, cfg, dcfg, 24,
+                                         draft_tokens=K)
+        assert torch.equal(got, tg.generate(params, prompt, cfg, 24))
+    prompts = [prompt[i].tolist() for i in range(3)]
+    outs = []
+    for kw in ({}, {"draft_params": draft, "draft_cfg": dcfg,
+                    "spec_policy": "always", "draft_tokens": 3}):
+        eng = Engine(params, cfg, slots=4, max_len=128, buckets=(32,),
+                     device=card, **kw)
+        try:
+            outs.append([eng.generate(p, 20) for p in prompts])
+            if kw:
+                assert eng.spec_cycles_total > 0
+        finally:
+            eng.stop()
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_reprime_draft_after_plain_phase_on_card(card):
+    """A plain phase (2 active rows > the rule's 1) and then speculation:
+    the re-prime scatters only real rows, so no device assert fires and the
+    tokens stay the plain greedy ones."""
+    from nanotpu_torch.serving.engine import Engine
+
+    cfg, dcfg, _, (params, draft) = _serving_models(card)
+    eng = Engine(params, cfg, slots=4, max_len=128, buckets=(16, 32),
+                 chunk_steps=4, chunk_steps_max=8, draft_params=draft,
+                 draft_cfg=dcfg, draft_tokens=3, spec_policy=[(1, 3)],
+                 device=card)
+    try:
+        long_req = eng.submit([5, 3, 1], 40)
+        short_req = eng.submit([2, 7, 1, 8], 6)
+        assert short_req.wait(120) and short_req.error is None
+        assert long_req.wait(120) and long_req.error is None
+        torch.cuda.synchronize()
+        assert eng.spec_cycles_total > 0
+    finally:
+        eng.stop()
+    for req, prompt, n in ((long_req, [5, 3, 1], 40),
+                           (short_req, [2, 7, 1, 8], 6)):
+        assert req.out == tg.generate(params, torch.tensor([prompt],
+                                                           device=card),
+                                      cfg, n)[0].tolist()

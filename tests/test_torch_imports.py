@@ -54,12 +54,18 @@ def test_importing_every_module_loads_no_jax_or_nanotpu():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'nanotpu'))\n"
         "print('LOADED', len([k for k in sys.modules if k.startswith('nanotpu_torch')]))\n"
+        "print('MODULES', ' '.join(sorted(sys.modules)))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split("LOADED")[1]) >= 10
+    assert int(res.stdout.split("LOADED")[1].split()[0]) >= 13
+    loaded = set(res.stdout.split("MODULES")[1].split())
+    assert {f"nanotpu_torch.models.{m}" for m in
+            ("quant", "speculative", "distill")} <= loaded
+    assert {p.name for p in PORT_FILES} >= {"quant.py", "speculative.py",
+                                            "distill.py"}
 
 
 def test_entry_points_raise_without_a_card_or_an_explicit_cpu():

@@ -5,7 +5,17 @@ same cache state, with the JAX tiny parameters carried over (float32; logits
 atol 1e-4, cache contents atol 1e-5, greedy tokens exactly equal).
 Second group: the engine and its HTTP front end, mirroring
 tests/test_serving.py's TestEngineCorrectness and TestServingHTTP (greedy
-outputs exactly equal to a solo generate)."""
+outputs exactly equal to a solo generate).
+Third group: the int8 KV cache and per-row speculative decoding, mirroring
+tests/test_serving.py's TestKvInt8, TestSpeculativeServing,
+test_speculative_composes_with_kv_int8, TestAdaptiveSpeculation,
+TestMeasuredPolicy and TestSpecPolicyMisconfigWarning (the MoE classes wait
+for the MoE model): building blocks against the JAX engine's (int8 values
+equal, scales and logits within 1e-5 / 1e-4), the int8-KV engine's greedy
+tokens equal to the JAX int8-KV engine's, and the speculative engine's
+greedy tokens equal to the plain engine's. nanotpu's checks of which chunks
+were compiled become checks of the policy's arms (``_variant_ks``): the
+port compiles nothing."""
 
 import dataclasses
 import json
@@ -20,13 +30,17 @@ import numpy as np
 import pytest
 import torch
 
+from nanotpu.models import distill as jd
 from nanotpu.models import generate as jg
 from nanotpu.models import llama as jl
 from nanotpu.serving import engine as je
 from nanotpu_torch.convert import params_from_numpy
+from nanotpu_torch.models import distill as td
 from nanotpu_torch.models import generate as tg
 from nanotpu_torch.models import llama as tl
+from nanotpu_torch.models import quant as tq
 from nanotpu_torch.serving import engine as te
+from nanotpu_torch.serving import server as tsrv
 from nanotpu_torch.serving.http import serve
 from nanotpu_torch.serving.server import ServingAPI, build_engine
 
@@ -430,3 +444,656 @@ def test_build_engine_tiny_preset_serves_on_cpu():
         assert out == ref_greedy(eng.params, [1, 2, 3], 4)
     finally:
         eng.stop()
+
+
+# -- third group: int8 KV cache and speculative decoding --------------------
+
+DCFG_J = dataclasses.replace(CFG_J, n_layers=1)
+DCFG_T = dataclasses.replace(CFG_T, n_layers=1)
+
+
+@pytest.fixture(scope="module")
+def drafts(models):
+    """nanotpu's test draft (one layer, tied to the target, truncated
+    init) as (jax draft, port draft, port draft config)."""
+    params, tparams = models
+    jdraft = jd.init_draft(jax.random.PRNGKey(9), params, CFG_J, DCFG_J)
+    tdraft = td.init_draft(torch.Generator().manual_seed(9), tparams, CFG_T,
+                           DCFG_T)
+    return jdraft, tdraft, DCFG_T
+
+
+def slot_caches8(lengths, T=32, seed=0):
+    """The same int8 slot-cache contents (quantized by nanotpu) as a JAX and
+    a torch SlotCache8."""
+    jc, _ = slot_caches(lengths, T, seed)
+    parts = [[je.quantize_kv(x) for x in planes] for planes in (jc.k, jc.v)]
+    arrays = [[np.asarray(q) for q, _ in parts[0]],
+              [np.asarray(q) for q, _ in parts[1]],
+              [np.asarray(s) for _, s in parts[0]],
+              [np.asarray(s) for _, s in parts[1]]]
+    jc8 = je.SlotCache8(*(tuple(map(jnp.asarray, a)) for a in arrays),
+                        jnp.asarray(lengths, jnp.int32))
+    tc8 = te.SlotCache8(*(tuple(torch.from_numpy(x.copy()) for x in a)
+                          for a in arrays),
+                        torch.tensor(lengths, dtype=torch.int32))
+    return jc8, tc8
+
+
+def cache_pair(int8, lengths, seed):
+    return slot_caches8(lengths, seed=seed) if int8 else slot_caches(
+        lengths, seed=seed)
+
+
+def assert_any_caches_close(tc, jc):
+    """Values within 1e-5 (int8 values exactly), scales within 1e-6 of
+    their size, lengths equal."""
+    for a, b in zip(tc[:-1], jc[:-1]):
+        for x, y in zip(a, b):
+            if x.dtype == torch.int8:
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+            else:
+                np.testing.assert_allclose(x.numpy(), np.asarray(y),
+                                           atol=1e-5, rtol=1e-6)
+    assert tc.lengths.tolist() == np.asarray(jc.lengths).tolist()
+
+
+def test_quantize_kv_matches_jax():
+    x = np.random.default_rng(0).standard_normal((4, 7, 2, 64)).astype(
+        np.float32)
+    q, s = te.quantize_kv(torch.from_numpy(x))
+    jq_, js_ = je.quantize_kv(jnp.asarray(x))
+    assert q.dtype == torch.int8 and s.shape == (4, 7, 2)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq_))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js_))
+    back = te.dequantize_kv(q, s, torch.float32)
+    # symmetric absmax int8: error <= scale/2 = absmax/254 per element
+    absmax = np.abs(x).max(axis=-1, keepdims=True)
+    assert (np.abs(back.numpy() - x) <= absmax / 254 + 1e-6).all()
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_rows_forward_int8_cache_matches_jax(models, S):
+    params, tparams = models
+    lengths, advance = [3, 7, 0, 12], [S, S, 0, 1]
+    jc, tc = slot_caches8(lengths)
+    tokens = np.random.default_rng(S).integers(0, 256, (4, S))
+    jlog, jc2 = jax.jit(je._rows_forward, static_argnums=1)(
+        params, CFG_J, jc, jnp.asarray(tokens), jnp.asarray(advance, jnp.int32)
+    )
+    with torch.inference_mode():
+        tlog, tc2 = te._rows_forward(tparams, CFG_T, tc,
+                                     torch.from_numpy(tokens),
+                                     torch.tensor(advance))
+    assert isinstance(tc2, te.SlotCache8)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4)
+    assert_any_caches_close(tc2, jc2)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_insert_rows_drops_out_of_range_rows_like_jax(int8):
+    """A row aimed at slot index == SLOTS (the JAX engine's padding row) is
+    dropped, never written: the rest lands as nanotpu's scatter puts it."""
+    jc, tc = cache_pair(int8, [5, 1, 9, 20], seed=4)
+    rng = np.random.default_rng(5)
+    shape = (3, 32, CFG_T.n_kv_heads, CFG_T.head_dim)
+    ks = [rng.standard_normal(shape, np.float32) for _ in range(CFG_T.n_layers)]
+    vs = [rng.standard_normal(shape, np.float32) for _ in range(CFG_T.n_layers)]
+    slots, lengths = [2, 4, 0], [6, 30, 3]  # row 1 is padding
+    want = je.insert_rows(jc, [jnp.asarray(k) for k in ks],
+                          [jnp.asarray(v) for v in vs],
+                          jnp.asarray(slots, jnp.int32),
+                          jnp.asarray(lengths, jnp.int32))
+    got = te.insert_rows(tc, [torch.from_numpy(k) for k in ks],
+                         [torch.from_numpy(v) for v in vs], slots, lengths)
+    assert_any_caches_close(got, want)
+    assert got.lengths.tolist() == [3, 1, 6, 20]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_speculative_serving_cycle_greedy_matches_jax(models, drafts, int8):
+    """One greedy cycle at per-row frontiers with an inactive row: emits,
+    counts, next tokens and both caches as the JAX cycle's."""
+    params, tparams = models
+    jdraft, tdraft, dcfg = drafts
+    lengths = [3, 9, 0, 14]
+    jc, tc = cache_pair(int8, lengths, seed=6)
+    jdc, tdc = slot_caches([l + 1 for l in lengths], seed=7)
+    jdc = jdc._replace(k=jdc.k[:1], v=jdc.v[:1])
+    tdc = tdc._replace(k=tdc.k[:1], v=tdc.v[:1])
+    tokens = np.array([17, 3, 250, 64])
+    active = np.array([True, True, False, True])
+    temps = np.zeros(4, np.float32)
+    cycle = jax.jit(je.speculative_serving_cycle, static_argnums=(2, 3, 10))
+    jout = cycle(params, jdraft, CFG_J, DCFG_J, jc, jdc, jnp.asarray(tokens),
+                 jnp.asarray(active), jnp.asarray(temps),
+                 jax.random.PRNGKey(0), 3)
+    with torch.inference_mode():
+        tout = te.speculative_serving_cycle(
+            tparams, tdraft, CFG_T, dcfg, tc, tdc, torch.from_numpy(tokens),
+            torch.from_numpy(active), torch.from_numpy(temps),
+            torch.Generator().manual_seed(0), 3)
+    for got, want in zip(tout[2:], jout[2:]):  # next tokens, emit, counts
+        assert got.tolist() == np.asarray(want).tolist()
+    assert_any_caches_close(tout[0], jout[0])
+    assert_any_caches_close(tout[1], jout[1])
+    assert tout[4].tolist()[2] == 0  # the inactive row emits nothing
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_speculative_serving_chunk_greedy_matches_jax(models, drafts, int8):
+    """Several cycles with budgets, a frozen row and an eos: the same
+    emits, counts, done flags and budgets as the JAX chunk."""
+    params, tparams = models
+    jdraft, tdraft, dcfg = drafts
+    lengths = [4, 6, 2, 8]
+    tokens = np.array([5, 6, 7, 8])
+    done = np.array([False, False, True, False])
+    temps = np.zeros(4, np.float32)
+    remaining = np.array([9, 2, 0, 7], np.int32)
+    chunk = jax.jit(je.speculative_serving_chunk, static_argnums=(2, 3),
+                    static_argnames=("n_cycles", "draft_tokens", "eos_id"))
+
+    def run_jax(eos):
+        jc, _ = cache_pair(int8, lengths, seed=8)
+        jdc, _ = slot_caches(lengths, seed=9)
+        jdc = jdc._replace(k=jdc.k[:1], v=jdc.v[:1])
+        return chunk(params, jdraft, CFG_J, DCFG_J, jc, jdc,
+                     jnp.asarray(tokens), jnp.asarray(done),
+                     jnp.asarray(temps), jnp.asarray(remaining),
+                     jax.random.PRNGKey(0), n_cycles=4, draft_tokens=3,
+                     eos_id=eos)
+
+    probe = run_jax(-1)
+    eos = int(np.asarray(probe[6])[1, 3, 0])  # row 3's first token of cycle 2
+    jout = run_jax(eos)
+    _, tc = cache_pair(int8, lengths, seed=8)
+    _, tdc = slot_caches(lengths, seed=9)
+    tdc = tdc._replace(k=tdc.k[:1], v=tdc.v[:1])
+    with torch.inference_mode():
+        tout = te.speculative_serving_chunk(
+            tparams, tdraft, CFG_T, dcfg, tc, tdc, torch.from_numpy(tokens),
+            torch.from_numpy(done), torch.from_numpy(temps),
+            torch.from_numpy(remaining), torch.Generator().manual_seed(0),
+            n_cycles=4, draft_tokens=3, eos_id=eos)
+    # tokens, done, remaining, emits, counts
+    for got, want in zip(tout[2:], jout[2:4] + jout[4:5] + jout[6:]):
+        assert got.tolist() == np.asarray(want).tolist()
+    assert_any_caches_close(tout[0], jout[0])
+
+
+def test_prefill_cache_only_matches_prefill_rows(models):
+    _, tparams = models
+    prompt = torch.tensor([[9, 8, 7, 6, 5, 0, 0, 0]])
+    with torch.inference_mode():
+        ks, vs = te.prefill_cache_only(tparams, CFG_T, prompt, 32)
+        _, ks2, vs2 = te.prefill_request(tparams, CFG_T, prompt, 5, 32, 0.0,
+                                         None)
+    for a, b in zip(ks + vs, ks2 + vs2):
+        assert torch.equal(a, b)
+
+
+def sharp(tree):
+    return {**tree, "lm_head": tree["lm_head"] * 25.0}
+
+
+def run_engine(eng, prompts, n, timeout=120):
+    try:
+        reqs = [eng.submit(p, n) for p in prompts]
+        for r in reqs:
+            assert r.wait(timeout) and r.error is None, r.error
+        return [r.out for r in reqs]
+    finally:
+        eng.stop()
+
+
+class TestKvInt8:
+    PROMPTS = [[3, 1, 4, 1, 5], [9, 2, 6], [5, 3, 5, 8, 9, 7, 9]]
+
+    def test_engine_kv_int8_equals_jax_and_tracks_plain(self, models):
+        """The int8-KV engine's greedy tokens equal nanotpu's int8-KV
+        engine's; with a sharpened head they agree with the exact engine at
+        >= 70% of positions (nanotpu's bound), with the same shapes."""
+        params, tparams = models
+        jeng = je.Engine(sharp(params), CFG_J, slots=2, max_len=64,
+                         buckets=(16,), kv_int8=True, chunk_steps=4,
+                         chunk_steps_max=4)
+        want = run_engine(jeng, self.PROMPTS, 12)
+        outs = {}
+        for flag in (False, True):
+            eng = te.Engine(sharp(tparams), CFG_T, slots=2, max_len=64,
+                            buckets=(16,), kv_int8=flag, device="cpu")
+            outs[flag] = run_engine(eng, self.PROMPTS, 12)
+        assert outs[True] == want
+        agree = total = 0
+        for a, b in zip(outs[False], outs[True]):
+            assert len(a) == len(b) == 12
+            agree += sum(x == y for x, y in zip(a, b))
+            total += len(a)
+        assert agree / total >= 0.7, (agree / total, outs)
+
+    def test_kv_int8_cache_is_actually_int8(self, models):
+        _, tparams = models
+        eng = te.Engine(tparams, CFG_T, slots=2, max_len=32, buckets=(16,),
+                        kv_int8=True, device="cpu")
+        try:
+            eng.generate([1, 2, 3], 4)
+            assert isinstance(eng._cache, te.SlotCache8)
+            assert eng._cache.k[0].dtype == torch.int8
+            assert eng._cache.k_scale[0].dtype == torch.float32
+        finally:
+            eng.stop()
+
+    @pytest.mark.parametrize("kv_int8", [False, True])
+    def test_build_engine_int8_weights(self, kv_int8):
+        """build_engine(quantize=True) serves QArray weights; its greedy
+        tokens are generate()'s on the same quantized tree (the int8 cache
+        rounds k/v, so there the engine is held to its own plain twin)."""
+        kw = dict(slots=2, max_len=64, device="cpu", buckets=(16,))
+        eng = build_engine("tiny", quantize=True, kv_int8=kv_int8, **kw)
+        assert isinstance(eng.params["lm_head"], tq.QArray)
+        qparams = eng.params
+        got = run_engine(eng, [[1, 2, 3], [7, 7, 7, 7]], 6)
+        if kv_int8:
+            want = run_engine(build_engine("tiny", quantize=True, **kw),
+                              [[1, 2, 3], [7, 7, 7, 7]], 6)
+            assert sum(a == b for x, y in zip(got, want)
+                       for a, b in zip(x, y)) >= 10
+        else:
+            assert got == [tg.generate(qparams, torch.tensor([p]),
+                                       eng.cfg, 6)[0].tolist()
+                           for p in ([1, 2, 3], [7, 7, 7, 7])]
+
+
+def spec_engine(tparams, tdraft, dcfg, **kw):
+    kw.setdefault("draft_tokens", 3)
+    kw.setdefault("spec_policy", "always")
+    return te.Engine(tparams, CFG_T, draft_params=tdraft, draft_cfg=dcfg,
+                     device="cpu", **kw)
+
+
+class TestSpeculativeServing:
+    def test_greedy_rows_match_plain_engine_per_slot(self, models, drafts):
+        """Every request's tokens equal its solo generate() run under
+        staggered mixed-length admission."""
+        params, tparams = models
+        _, tdraft, dcfg = drafts
+        prompts = [[1, 2, 3], [7] * 13, [42], [5, 4, 3, 2, 1, 0, 1, 2, 3, 4],
+                   [11, 13, 17, 19]]
+        lengths = [12, 5, 17, 9, 14]
+        eng = spec_engine(tparams, tdraft, dcfg, slots=4, max_len=128,
+                          buckets=(16, 32, 64))
+        try:
+            reqs = [eng.submit(p, n) for p, n in zip(prompts, lengths)]
+            for r, p, n in zip(reqs, prompts, lengths):
+                assert r.wait(120) and r.error is None
+                assert r.out == ref_greedy(tparams, p, n), (p, n)
+            st = eng.stats()
+            assert st["spec_cycles_total"] > 0
+            assert 1.0 <= st["spec_tokens_per_cycle"] <= 4.0
+            assert st["spec_bandit_tok_s"] is None
+        finally:
+            eng.stop()
+        jax_ref = jax.jit(jg.generate, static_argnums=(2, 3))(
+            params, jnp.asarray([prompts[3]], jnp.int32), CFG_J, lengths[3])
+        assert reqs[3].out == np.asarray(jax_ref)[0].tolist()
+
+    def test_perfect_draft_rows_advance_independently(self, models):
+        _, tparams = models
+        eng = spec_engine(tparams, tparams, CFG_T, slots=3, max_len=128,
+                          buckets=(16, 32), draft_tokens=4)
+        prompts = [[3, 1, 4], [2, 7, 1, 8, 2, 8], [9]]
+        outs = run_engine(eng, prompts, 11)
+        assert outs == [ref_greedy(tparams, p, 11) for p in prompts]
+        # every cycle accepted all 4 proposals: 5 tokens a row-cycle
+        assert eng.spec_cycle_tokens_total >= 4 * eng.spec_cycles_total
+
+    def test_sampled_rows_finish_and_stay_in_range(self, models, drafts):
+        _, tparams = models
+        _, tdraft, dcfg = drafts
+        eng = spec_engine(tparams, tdraft, dcfg, slots=3, max_len=128,
+                          buckets=(16, 32), seed=5)
+        try:
+            sampled = [eng.submit([4, 2], 13, temperature=0.9)
+                       for _ in range(2)]
+            greedy = eng.submit([3, 1, 4, 1, 5], 10)
+            for r in sampled:
+                assert r.wait(120) and r.error is None
+                assert len(r.out) == 13
+                assert all(0 <= t < CFG_T.vocab_size for t in r.out)
+            assert greedy.wait(120) and greedy.error is None
+            assert greedy.out == ref_greedy(tparams, [3, 1, 4, 1, 5], 10)
+        finally:
+            eng.stop()
+
+    def test_eos_mid_acceptance_stops_row(self, models, drafts):
+        _, tparams = models
+        _, tdraft, dcfg = drafts
+        ref = ref_greedy(tparams, [6, 6, 6], 24)
+        eos = ref[7]
+        eng = spec_engine(tparams, tdraft, dcfg, slots=2, max_len=128,
+                          buckets=(16,), eos_id=eos)
+        try:
+            stopped = eng.submit([6, 6, 6], 24)
+            other = eng.submit([1, 2, 3, 4], 12)
+            assert stopped.wait(120) and stopped.error is None
+            assert stopped.out == ref[: ref.index(eos) + 1]
+            assert other.wait(120) and other.error is None
+            ref_other = ref_greedy(tparams, [1, 2, 3, 4], 12)
+            cut = (ref_other.index(eos) + 1 if eos in ref_other
+                   else len(ref_other))
+            assert other.out == ref_other[:cut]
+        finally:
+            eng.stop()
+
+
+def test_speculative_composes_with_kv_int8(models, drafts):
+    """An int8-KV target with a draft: greedy rows equal the plain int8-KV
+    engine's and track generate() (nanotpu's slack: >= 6 of 8); the
+    draft's cache stays plain."""
+    _, tparams = models
+    _, tdraft, dcfg = drafts
+    prompt = [1, 2, 3, 4]
+    plain = run_engine(te.Engine(tparams, CFG_T, slots=2, max_len=64,
+                                 buckets=(16,), kv_int8=True, device="cpu"),
+                       [prompt], 8)[0]
+    eng = spec_engine(tparams, tdraft, dcfg, slots=2, max_len=64,
+                      buckets=(16,), kv_int8=True)
+    try:
+        r = eng.submit(prompt, 8)
+        assert r.wait(120) and r.error is None
+        assert r.out == plain
+        exp = ref_greedy(tparams, prompt, 8)
+        assert sum(a == b for a, b in zip(r.out, exp)) >= 6, (r.out, exp)
+        assert eng._cache.k[0].dtype == torch.int8
+        assert eng._d_cache.k[0].dtype == torch.float32
+        assert eng.spec_cycles_total > 0
+    finally:
+        eng.stop()
+
+
+class TestAdaptiveSpeculation:
+    def test_policy_k_selection(self, models, drafts):
+        _, tparams = models
+        _, tdraft, dcfg = drafts
+        eng = spec_engine(tparams, tdraft, dcfg, slots=8, max_len=128,
+                          buckets=(16,), draft_tokens=4,
+                          spec_policy=[(2, 4), (6, 2)])
+        try:
+            assert [eng._policy_k(n) for n in (1, 2, 3, 6, 7, 8)] == \
+                [4, 4, 2, 2, 0, 0]
+            assert eng._variant_ks == [0, 2, 4]
+        finally:
+            eng.stop()
+
+    def test_auto_default_speculates_only_at_small_batch(self, models,
+                                                         drafts):
+        _, tparams = models
+        _, tdraft, dcfg = drafts
+        eng = te.Engine(tparams, CFG_T, slots=4, max_len=128, buckets=(16,),
+                        draft_params=tdraft, draft_cfg=dcfg, draft_tokens=3,
+                        device="cpu")
+        try:
+            assert eng.spec_rules == [(2, 3)]
+            assert [eng._policy_k(n) for n in (1, 2, 3)] == [3, 3, 0]
+            assert eng._variant_ks == [0, 3]
+        finally:
+            eng.stop()
+
+    def test_bad_policy_k_rejected(self, models, drafts):
+        _, tparams = models
+        _, tdraft, dcfg = drafts
+        with pytest.raises(ValueError, match="draft_tokens"):
+            spec_engine(tparams, tdraft, dcfg, slots=2, max_len=128,
+                        buckets=(16,), draft_tokens=2, spec_policy=[(2, 5)])
+        with pytest.raises(ValueError, match="draft_cfg"):
+            te.Engine(tparams, CFG_T, slots=2, max_len=64,
+                      draft_params=tdraft, device="cpu")
+
+    def test_greedy_invariant_across_policy_switch(self, models, drafts):
+        """A request that starts under plain chunks (2 active > 1), loses
+        its neighbour and finishes under speculative chunks, crossing the
+        re-prime path, emits exactly its solo greedy sequence."""
+        _, tparams = models
+        _, tdraft, dcfg = drafts
+        eng = spec_engine(tparams, tdraft, dcfg, slots=2, max_len=128,
+                          buckets=(16, 32), chunk_steps=4, chunk_steps_max=8,
+                          spec_policy=[(1, 3)])
+        reprimes = []
+        orig = eng._reprime_draft
+
+        def spy():
+            reprimes.append(sorted(eng._draft_stale))
+            orig()
+
+        eng._reprime_draft = spy
+        try:
+            long_req = eng.submit([5, 3, 1], 40)
+            short_req = eng.submit([2, 7, 1, 8], 6)
+            assert short_req.wait(120) and short_req.error is None
+            assert long_req.wait(120) and long_req.error is None
+            assert short_req.out == ref_greedy(tparams, [2, 7, 1, 8], 6)
+            assert long_req.out == ref_greedy(tparams, [5, 3, 1], 40)
+            assert eng.spec_cycles_total > 0, "speculative regime never ran"
+            assert reprimes, "re-prime path never exercised"
+        finally:
+            eng.stop()
+
+    def test_switch_with_kv_int8_target(self, models, drafts):
+        _, tparams = models
+        _, tdraft, dcfg = drafts
+        eng = spec_engine(tparams, tdraft, dcfg, slots=2, max_len=64,
+                          buckets=(16,), chunk_steps=4, chunk_steps_max=4,
+                          kv_int8=True, spec_policy=[(1, 3)])
+        try:
+            a = eng.submit([1, 2, 3, 4], 24)
+            b = eng.submit([9, 8], 5)
+            assert b.wait(120) and b.error is None
+            assert a.wait(120) and a.error is None
+            assert len(a.out) == 24
+            assert all(0 <= t < CFG_T.vocab_size for t in a.out)
+            assert eng.spec_cycles_total > 0
+        finally:
+            eng.stop()
+
+
+def test_reprime_draft_primes_only_stale_rows(models, drafts):
+    """The re-prime writes each stale row's draft cache from its prompt and
+    emitted tokens and its length, touches no other slot, and sends no row
+    at an index outside the cache (a padding row in the JAX engine)."""
+    _, tparams = models
+    _, tdraft, dcfg = drafts
+    eng = spec_engine(tparams, tdraft, dcfg, slots=4, max_len=64,
+                      buckets=(16, 32), spec_policy=[(1, 3)])
+    eng.stop()
+    reqs = {0: ([1, 2, 3], [4, 5]), 2: ([7] * 20, [9]), 3: ([8, 8], [1, 2])}
+    for slot, (prompt, out) in reqs.items():
+        r = te.Request(prompt, 10)
+        r.out = list(out)
+        eng._slot_req[slot] = r
+        eng._done[slot] = False
+    eng._done[3] = True  # finished: nothing to re-prime
+    eng._draft_stale = {0, 2, 3}
+    before = [t.clone() for t in eng._d_cache.k + eng._d_cache.v]
+    calls = []
+    orig = te.insert_rows
+
+    def spy(cache, ks, vs, slots, lengths):
+        calls.append((list(slots), list(lengths), ks[0].shape[0]))
+        return orig(cache, ks, vs, slots, lengths)
+
+    try:
+        te.insert_rows = spy
+        with torch.inference_mode():
+            eng._reprime_draft()
+    finally:
+        te.insert_rows = orig
+    assert sorted(calls) == [([0], [4], 1), ([2], [20], 1)]
+    assert eng._draft_stale == set()
+    assert eng._d_cache.lengths.tolist()[0] == 4
+    assert eng._d_cache.lengths.tolist()[2] == 20
+    after = eng._d_cache.k + eng._d_cache.v
+    for slot in (1, 3):  # not stale, or finished: untouched
+        for a, b in zip(before, after):
+            assert torch.equal(a[slot], b[slot])
+    with torch.inference_mode():
+        ks, _ = te.prefill_cache_only(
+            tdraft, dcfg, torch.tensor([[7] * 20 + [0] * 12]), 64)
+    torch.testing.assert_close(eng._d_cache.k[0][2, :20], ks[0][0, :20],
+                               rtol=0, atol=0)
+
+
+class TestMeasuredPolicy:
+    def measured(self, models, drafts, **kw):
+        _, tparams = models
+        _, tdraft, dcfg = drafts
+        kw.setdefault("slots", 4)
+        kw.setdefault("max_len", 128)
+        kw.setdefault("buckets", (16,))
+        return spec_engine(tparams, tdraft, dcfg, spec_policy="measured",
+                           **kw)
+
+    def test_has_plain_and_spec_arms(self, models, drafts):
+        eng = self.measured(models, drafts)
+        try:
+            assert eng._measured
+            assert eng._variant_ks == [0, 3]
+            assert eng.stats()["spec_bandit_tok_s"] == {}
+        finally:
+            eng.stop()
+
+    def test_bandit_explores_then_exploits_and_reprobes(self, models, drafts):
+        """Selection logic on a fake clock: both arms explored MIN_SAMPLES
+        times, the faster then exploited, the loser re-probed every
+        PROBE_EVERY syncs, and a drifted rate flips the arms."""
+        eng = self.measured(models, drafts)
+        try:
+            m = eng.BANDIT_MIN_SAMPLES
+            seen = []
+            for _ in range(2 * m):
+                k = eng._bandit_pick(2)
+                seen.append(k)
+                eng._bandit_update(2, k, tokens=8, dt=0.1 if k == 3 else 0.2)
+            assert seen.count(0) == m and seen.count(3) == m
+            picks = [eng._bandit_pick(2)
+                     for _ in range(eng.BANDIT_PROBE_EVERY - 1)]
+            assert set(picks) == {3}
+            assert eng._bandit_pick(2) == 0  # the periodic loser probe
+            for _ in range(12):
+                eng._bandit_update(2, 0, tokens=64, dt=0.1)
+            assert eng._bandit_pick(2) == 0
+            assert eng._bandit_pick(4) == 0 and eng._bandit_bucket(3) == 4
+            tab = eng.stats()["spec_bandit_tok_s"]
+            assert "2/large" in tab and set(tab["2/large"]) == {"0", "3"}
+        finally:
+            eng.stop()
+
+    def test_bandit_arm_tables_are_keyed_by_chunk_flavor(self, models,
+                                                         drafts):
+        eng = self.measured(models, drafts)
+        try:
+            m = eng.BANDIT_MIN_SAMPLES
+            for flavor, fast in (("large", 3), ("small", 0)):
+                for _ in range(2 * m):
+                    k = eng._bandit_pick(2, flavor)
+                    eng._bandit_update(2, k, tokens=8,
+                                       dt=0.1 if k == fast else 0.2,
+                                       flavor=flavor)
+            assert eng._bandit_pick(2, "large") == 3
+            assert eng._bandit_pick(2, "small") == 0
+            assert set(eng.stats()["spec_bandit_tok_s"]) == {"2/large",
+                                                             "2/small"}
+        finally:
+            eng.stop()
+
+    def test_cold_sample_cannot_flip_the_argmax(self, models, drafts):
+        eng = self.measured(models, drafts)
+        try:
+            m = eng.BANDIT_MIN_SAMPLES
+            for _ in range(2 * m):
+                k = eng._bandit_pick(2, "large")
+                eng._bandit_update(2, k, tokens=8, dt=0.1 if k == 3 else 0.2,
+                                   flavor="large")
+            before = {b: dict(a) for b, a in eng._bandit_rate.items()}
+            eng._bandit_update(2, 3, tokens=8, dt=30.0, flavor="large",
+                               cold=True)
+            assert eng._bandit_rate == before
+            assert eng._bandit_pick(2, "large") == 3
+        finally:
+            eng.stop()
+
+    def test_measured_greedy_invariant(self, models, drafts):
+        """Arm switches driven by live timings change no greedy token; both
+        arms run."""
+        _, tparams = models
+        eng = self.measured(models, drafts, slots=2, buckets=(16, 32),
+                            chunk_steps=2, chunk_steps_max=4)
+        try:
+            a = eng.submit([5, 3, 1], 40)
+            b = eng.submit([2, 7, 1, 8], 6)
+            assert b.wait(120) and b.error is None
+            assert a.wait(120) and a.error is None
+            assert b.out == ref_greedy(tparams, [2, 7, 1, 8], 6)
+            assert a.out == ref_greedy(tparams, [5, 3, 1], 40)
+            assert eng.spec_cycles_total > 0, "spec arm never ran"
+            assert any(n for b_ in eng._bandit_n.values()
+                       for n in b_.values())
+        finally:
+            eng.stop()
+
+
+class TestSpecPolicyMisconfigWarning:
+    @pytest.mark.parametrize("policy,level", [
+        ("measured", "WARNING"), ("always", "WARNING"), ("auto", "INFO"),
+    ])
+    def test_policy_without_draft_warns(self, models, caplog, policy, level):
+        _, tparams = models
+        with caplog.at_level("INFO", logger="nanotpu_torch.serving"):
+            eng = te.Engine(tparams, CFG_T, slots=2, max_len=64,
+                            buckets=(16,), spec_policy=policy, device="cpu")
+        try:
+            assert not eng._measured and eng.spec_rules == []
+            logged = [r for r in caplog.records
+                      if "draft_params is None" in r.getMessage()]
+            assert logged, f"no fallback log for spec_policy={policy!r}"
+            assert logged[0].levelname == level
+            assert repr(policy) in logged[0].getMessage()
+        finally:
+            eng.stop()
+
+    def test_off_without_draft_is_silent(self, models, caplog):
+        _, tparams = models
+        with caplog.at_level("WARNING", logger="nanotpu_torch.serving"):
+            eng = te.Engine(tparams, CFG_T, slots=2, max_len=64,
+                            buckets=(16,), spec_policy="off", device="cpu")
+        try:
+            assert eng.spec_rules == []
+            assert not [r for r in caplog.records
+                        if "draft_params" in r.getMessage()]
+        finally:
+            eng.stop()
+
+
+def test_server_flags_reach_the_engine(monkeypatch):
+    """--int8 and --kv-int8 parse with nanotpu's help strings and reach
+    build_engine as quantize and kv_int8."""
+    help_text = tsrv._parser().format_help()
+    assert "weight-only int8" in help_text
+    assert "int8 KV cache (halves decode HBM reads)" in help_text
+    args = tsrv._parser().parse_args(["--int8", "--kv-int8"])
+    assert args.int8 and args.kv_int8
+    assert not tsrv._parser().parse_args([]).int8
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_build(preset, slots, max_len, **kw):
+        seen.update(kw, preset=preset)
+        raise Stop
+
+    monkeypatch.setattr(tsrv, "build_engine", fake_build)
+    with pytest.raises(Stop):
+        tsrv.main(["--preset", "tiny", "--int8", "--kv-int8", "--device",
+                   "cpu"])
+    assert seen["quantize"] and seen["kv_int8"] and seen["preset"] == "tiny"
