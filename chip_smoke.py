@@ -31,9 +31,20 @@ them:
    random weights from a seeded generator, behind the port's HTTP server;
    concurrent ``/v1/generate`` requests over several prefill buckets, one of
    them SSE; checks tokens, determinism, ``/v1/stats`` and ``/metrics``, and
-   that every admission prefill launched the forward kernel once per layer;
-6. serving parity phase: in float32 at the flagship width, the engine's
-   greedy tokens equal the port's own ``generate``;
+   that every admission prefill launched the forward kernel once per layer.
+   Every engine on the card (this phase's and all later ones') replays its
+   decode step and speculative cycles as CUDA graphs captured at warm-up,
+   unless it is built with ``cuda_graphs=False``; each serving path checks
+   that its graphs replayed;
+6. serving parity phase: in float32 at the flagship width, the (graphed)
+   engine's greedy tokens equal the port's own ``generate``;
+6a. graphs phase: the serving flagship in bf16 and with int8 weights and
+   KV cache, each built eager (``cuda_graphs=False``) and graphed, driven
+   in turns (eager, graphed, graphed, eager) with the same 8 prompts of 64
+   tokens: decode tokens/s at 8 busy slots, greedy tokens (every round
+   must equal every other), 8 x 64 tokens under the profiler (wall,
+   device busy, idle share, top kernels), each graph's capture time, peak
+   device memory and the graph pool's bytes;
 7. int8 serving phase: the serving flagship with int8 weights and an int8
    KV cache (``build_engine(..., quantize=True, kv_int8=True)``) through
    the serving phase's HTTP drive and measurements; the share of greedy
@@ -48,8 +59,13 @@ them:
    greedy tokens must equal the plain engine's; then the same weights in
    bf16 served by the plain engine and the "always" and "measured"
    policies at 1, 2 and 8 active rows (acceptance, decode tokens/s, greedy
-   tokens equal to plain's); then ``python -m nanotpu_torch.models.distill``
-   runs briefly and its JSON line must parse;
+   tokens equal to plain's), and by eager twins of the plain and "always"
+   engines, whose greedy tokens the graphed ones must equal; then ``python
+   -m nanotpu_torch.models.distill`` runs briefly and its JSON line must
+   parse;
+8a. bench phase: ``python -m nanotpu_torch.serving.bench`` (bf16, then
+   ``--int8 --kv-int8``) at its defaults, as subprocesses; each JSON line
+   must carry nanotpu's bench keys and is printed;
 9. training phase: the trainer's CLI entry (``nanotpu_torch.parallel.train``)
    on the training flagship (vocab 32768, dim 1024, 8 layers, 16/4 heads,
    bf16, ``--attn flash --seq 2049 --batch 8 --data markov --steps 10``):
@@ -65,9 +81,11 @@ them:
     loss, gradients and updated parameters.
 
 The last two lines are the kernel table and the device record, as JSON.
-Each path (serving, int8 serving, speculative, training, two-pass) counts
-its kernel launches from 0 and reads them just after it ran; the table
-gives each path's count and their sum.
+Each path (serving, int8 serving, graphs, distill, speculative, training,
+two-pass) counts its kernel launches from 0 and reads them just after it
+ran; the table gives each path's count and their sum. A decode graph
+captures no flash launch, so each serving path's count stays exact: the
+forward kernel once a layer for each prefill.
 Every phase that fails raises; nothing is caught.
 
 Run:  python3 chip_smoke.py     (one CUDA card and nvcc; builds on first use)
@@ -116,6 +134,14 @@ TRAIN_ARGV = ["--preset", "flagship", "--attn", "flash", "--seq",
               str(TRAIN_S + 1), "--batch", str(TRAIN_B), "--data", "markov",
               "--device", "cuda"]
 PROMPT_LENS = (5, 100, 600, 1500)
+#: the graphs phase's decode drive: SLOTS prompts of 64 tokens, this many
+#: new tokens each (the profiled round takes 64)
+GRAPH_NEW = 256
+#: the keys of nanotpu's serving bench line (nanotpu/serving/bench.py:66-80)
+BENCH_KEYS = {"preset", "int8", "kv_int8", "slots", "requests",
+              "max_new_tokens", "prompt_lengths", "wall_s",
+              "decode_tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+              "latency_p50_ms", "latency_p99_ms"}
 
 
 def card_line() -> str:
@@ -576,6 +602,7 @@ def serving_phase(card: str) -> dict:
         out = drive_http(engine, "serving")
         out.update(measure(engine, out.pop("rng"), card))
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["graphs"] = graph_record(engine, "serving")
         print(f"serving on {card}: TTFT p50 {out['ttft_p50_ms']:.2f} ms over "
               f"{len(out['ttft_ms'])} concurrent requests (all: "
               f"{out['ttft_ms']}); decode {out['decode_tok_s']:.1f} tok/s at "
@@ -583,6 +610,144 @@ def serving_phase(card: str) -> dict:
         return out
     finally:
         engine.stop()
+
+
+def graph_record(engine, label: str) -> dict:
+    """{K: capture seconds and replays} of an engine's decode graphs (K 0:
+    the plain step); raises unless the engine captured one graph for each
+    K its policy can pick and replayed every one of them."""
+    graphs = {k: {"capture_s": g.capture_s, "replays": g.replays}
+              for k, g in engine.graphs.items()}
+    if (not engine.cuda_graphs or set(graphs) != set(engine._variant_ks)
+            or not all(g["replays"] for g in graphs.values())):
+        raise AssertionError(f"{label}: decode did not run as replayed CUDA "
+                             f"graphs: {graphs}")
+    print(f"{label}: decode graphs (K: capture s, replays) "
+          f"{ {k: (round(g['capture_s'], 3), g['replays']) for k, g in graphs.items()} }")
+    return graphs
+
+
+def graph_pool_bytes():
+    """Bytes the caching allocator holds in private pools (the CUDA
+    graphs' pools) after releasing its idle cache; None where the memory
+    snapshot does not say which pool a segment is in."""
+    torch.cuda.empty_cache()
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def graphs_phase(card: str) -> dict:
+    """Eager against graphed decode at the serving flagship, bf16 and int8
+    weights with an int8 KV cache: per flavour one eager engine
+    (``cuda_graphs=False``) and one graphed, built in that order (peak
+    memory over each one's construction, warm-up and first round, above
+    what was allocated before it), then driven in turns, eager, graphed,
+    graphed, eager, each round SLOTS requests of the same 64-token prompts
+    x GRAPH_NEW tokens: decode tokens/s over the window from the last first
+    token to the last token, and greedy tokens, which must be the same in
+    every round. Then 8 x 64 tokens of each under the profiler. The
+    engines' prefills count as this path's launches, exactly."""
+    from nanotpu_torch.serving.server import build_engine
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 32768, 64).tolist() for _ in range(SLOTS)]
+    out = {}
+    admissions = 0
+    reset_launches()
+    for label, kw in (("bf16", {}),
+                      ("int8", dict(quantize=True, kv_int8=True))):
+        engines, res = {}, {}
+        try:
+            for graphs in (False, True):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                eng = engines[graphs] = build_engine(
+                    "flagship", SLOTS, MAX_LEN, seed=0, device="cuda",
+                    cuda_graphs=graphs, **kw)
+                eng.wait_warm()
+                ready_s = time.perf_counter() - t0
+                n_layers = eng.cfg.n_layers
+                outs, tok_s = decode_round(eng, prompts, GRAPH_NEW)
+                res[graphs] = {
+                    "ready_s": ready_s, "tok_s": [tok_s], "outs": [outs],
+                    "peak_mem_gib": (torch.cuda.max_memory_allocated()
+                                     - base) / 2**30}
+                admissions += 1 + SLOTS
+            for graphs in (True, False):
+                outs, tok_s = decode_round(engines[graphs], prompts,
+                                           GRAPH_NEW)
+                res[graphs]["tok_s"].append(tok_s)
+                res[graphs]["outs"].append(outs)
+                admissions += SLOTS
+            rounds = res[False]["outs"] + res[True]["outs"]
+            if any(r != rounds[0] for r in rounds):
+                raise AssertionError(f"graphs {label}: greedy tokens differ "
+                                     f"between eager and graphed rounds")
+            for graphs, eng in engines.items():
+                wall, busy, top, _ = device_profile(
+                    lambda: decode_round(eng, prompts, 64))
+                admissions += SLOTS
+                res[graphs]["profile"] = {
+                    "wall_ms": wall, "device_busy_ms": busy,
+                    "idle_share": None if busy is None else 1 - busy / wall,
+                    "top": top}
+            res[True]["graphs"] = graph_record(engines[True], f"graphs {label}")
+            res[True]["pool_bytes"] = graph_pool_bytes()
+        finally:
+            for eng in engines.values():
+                eng.stop()
+        for graphs, r in res.items():
+            del r["outs"]
+            name = "graphed" if graphs else "eager"
+            prof = r["profile"]
+            idle = ("not measured" if prof["idle_share"] is None
+                    else f"{100 * prof['idle_share']:.1f}%")
+            print(f"graphs {label} {name} on {card}: ready in "
+                  f"{r['ready_s']:.1f} s; decode {r['tok_s']} tok/s at {SLOTS} "
+                  f"busy slots (rounds in turn order); {SLOTS} x 64 tokens: "
+                  f"wall {prof['wall_ms']:.1f} ms, device busy "
+                  f"{prof['device_busy_ms']} ms, idle {idle}; peak memory "
+                  f"{r['peak_mem_gib']:.3f} GiB"
+                  + (f"; graph pool {r['pool_bytes']} B" if graphs else "")
+                  + f"; top kernels {prof['top']}")
+        out[label] = {"graphed" if g else "eager": r for g, r in res.items()}
+    launches = read_launches()
+    print(f"graphs path launches {launches} ({admissions} prefills); greedy "
+          f"tokens equal in every eager and graphed round")
+    if launches != {**dict.fromkeys(launches, 0),
+                    "flash_fwd": n_layers * admissions}:
+        raise AssertionError(f"graphs path launches {launches} for "
+                             f"{admissions} prefills")
+    out["launches"] = launches
+    return out
+
+
+def bench_phase(card: str) -> dict:
+    """``python -m nanotpu_torch.serving.bench`` at its defaults, bf16
+    and then ``--int8 --kv-int8``: each must exit 0 with one JSON line of
+    nanotpu's bench keys as its last line, which is printed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for flags in ([], ["--int8", "--kv-int8"]):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "nanotpu_torch.serving.bench", *flags],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"bench {flags} failed: {res.stderr[-2000:]}")
+        line = res.stdout.strip().splitlines()[-1]
+        got = json.loads(line)
+        if set(got) != BENCH_KEYS:
+            raise AssertionError(f"bench {flags} keys {sorted(got)}")
+        print(f"bench {' '.join(flags) or '(bf16)'} on {card} in "
+              f"{time.perf_counter() - t0:.1f} s:\n{line}")
+        out[" ".join(flags) or "bf16"] = got
+    return out
 
 
 def device_profile(fn, named: str = "") -> tuple:
@@ -716,6 +881,7 @@ def int8_serving_phase(card: str, bf16_greedy: list) -> dict:
         out["greedy_equal_share"] = sum(a == b for a, b in pairs) / len(pairs)
         out.update(measure(engine, out.pop("rng"), card))
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["graphs"] = graph_record(engine, "int8 serving")
         qparams, cache = engine.params, engine._cache
     finally:
         engine.stop()
@@ -856,13 +1022,13 @@ DISTILL_LR = 1e-5
 DISTILL_SEEDS = (0, 3)
 
 
-def spec_round(engine, prompts, n_new) -> tuple:
+def decode_round(engine, prompts, n_new) -> tuple:
     """(tokens of each request, decode tokens/s): the requests run together,
     the rate over the window from the last first token to the last one."""
     reqs = [engine.submit(p, n_new) for p in prompts]
     for r in reqs:
         if not r.wait(600) or r.error:
-            raise AssertionError(f"speculative drive: {r.error}")
+            raise AssertionError(f"decode round: {r.error}")
     window = max(r.done_at for r in reqs) - max(r.first_token_at for r in reqs)
     return [r.out for r in reqs], sum(len(r.out) - 1 for r in reqs) / window
 
@@ -930,7 +1096,11 @@ def speculative_phase(card: str) -> dict:
     generate's; then the same weights in bf16 (the serving phase's target)
     served by the plain engine and the "always" and "measured" policies at
     1, 2 and 8 active rows: acceptance, decode tokens/s and the share of
-    greedy tokens equal to plain's, with no bound on it.
+    greedy tokens equal to plain's, with no bound on it; and by eager twins
+    (``cuda_graphs=False``) of the plain and "always" engines, whose greedy
+    tokens the graphed ones must equal, token for token. Each bf16 engine's
+    peak memory, and for plain and "always", graphed and eager, 8 rows x 64
+    tokens under the profiler (wall, device busy, idle share).
 
     Two paths' launches: "distill", counted from 0 before the first
     distillation and read after the second, and "speculative", each
@@ -986,18 +1156,32 @@ def speculative_phase(card: str) -> dict:
     def engine_run(params, cfg, kw, drive):
         """An engine over ``params``, warmed up, driven by ``drive(engine)``
         -> (result, requests), stopped; a speculative engine's launches and
-        prefills (one a request and the warm-up's) go into the path's."""
+        prefills (one a request and the warm-up's) go into the path's. A
+        result that is a dict gains the engine's peak memory (above what
+        was allocated before it) and, graphed, its graph pool's bytes."""
         nonlocal admissions
-        if kw:
+        speculative = "draft_params" in kw
+        if speculative:
             reset_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
                      device="cuda", **kw)
         try:
             eng.wait_warm()
             res, n = drive(eng)
+            if isinstance(res, dict):
+                res["peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                       - base) / 2**30
+            if kw.get("cuda_graphs", True):
+                graph_record(eng, f"speculative phase, {cfg.dtype} "
+                                  f"{kw.get('spec_policy', 'plain')} engine")
+                if isinstance(res, dict):
+                    res["pool_bytes"] = graph_pool_bytes()
         finally:
             eng.stop()
-        if kw:
+        if speculative:
             for name, n_launched in read_launches().items():
                 launches[name] += n_launched
             admissions += n + 1
@@ -1067,7 +1251,7 @@ def speculative_phase(card: str) -> dict:
                 # one untimed round; the measured policy until each arm of
                 # this occupancy's large-chunk cell has its samples
                 for _ in range(8):
-                    spec_round(eng, prompts[n], SPEC_NEW)
+                    decode_round(eng, prompts[n], SPEC_NEW)
                     submitted += n
                     cell = eng._bandit_n.get((eng._bandit_bucket(n), "large"))
                     if policy != "measured" or (cell and min(cell.values())
@@ -1075,7 +1259,7 @@ def speculative_phase(card: str) -> dict:
                         break
                 cycles = eng.spec_cycles_total
                 emitted = eng.spec_cycle_tokens_total
-                outs, tok_s = spec_round(eng, prompts[n], SPEC_NEW)
+                outs, tok_s = decode_round(eng, prompts[n], SPEC_NEW)
                 submitted += n
                 cycles = eng.spec_cycles_total - cycles
                 rows[n] = {"tok_s": tok_s, "outs": outs,
@@ -1083,18 +1267,38 @@ def speculative_phase(card: str) -> dict:
                                (eng.spec_cycle_tokens_total - emitted) / cycles
                                if cycles else None)}
             stats = eng.stats()
-            return {"rows": rows, "stats": {
+            res = {"rows": rows, "stats": {
                 k: stats[k] for k in ("spec_cycles_total",
                                       "spec_tokens_per_cycle",
-                                      "spec_bandit_tok_s")}}, submitted
+                                      "spec_bandit_tok_s")}}
+            if policy != "measured":
+                # the busiest occupancy, 64 tokens a row, under the profiler
+                n = SPEC_ROWS[-1]
+                wall, busy, top, _ = device_profile(
+                    lambda: decode_round(eng, prompts[n], 64))
+                submitted += n
+                res["profile"] = {
+                    "rows": n, "wall_ms": wall, "device_busy_ms": busy,
+                    "idle_share": None if busy is None else 1 - busy / wall,
+                    "top": top}
+            return res, submitted
         return drive
 
     policies = {}
-    for policy in ("plain", "always", "measured"):
-        kw = {} if policy == "plain" else dict(
+    for policy in ("plain", "always", "measured", "plain eager",
+                   "always eager"):
+        name, _, eager = policy.partition(" ")
+        kw = {} if name == "plain" else dict(
             draft_params=draft, draft_cfg=dcfg, draft_tokens=SPEC_K,
-            spec_policy=policy)
-        policies[policy] = engine_run(params, cfg, kw, bf16_drive(policy))
+            spec_policy=name)
+        if eager:
+            kw["cuda_graphs"] = False
+        policies[policy] = engine_run(params, cfg, kw, bf16_drive(name))
+    for policy in ("plain", "always"):
+        for n, row in policies[policy]["rows"].items():
+            if row["outs"] != policies[f"{policy} eager"]["rows"][n]["outs"]:
+                raise AssertionError(f"bf16 {policy} at {n} rows: graphed "
+                                     f"greedy tokens differ from eager")
     for policy in ("always", "measured"):
         for n, row in policies[policy]["rows"].items():
             plain = policies["plain"]["rows"][n]["outs"]
@@ -1110,8 +1314,15 @@ def speculative_phase(card: str) -> dict:
                if row.get("tokens_per_cycle") else "")
             + (f", greedy equal to plain {row['greedy_equal_share']:.4f}"
                if "greedy_equal_share" in row else "")
-            for n, row in res["rows"].items()) + f"; stats {res['stats']}")
-    print(f"speculative path launches {launches} ({admissions} prefills)")
+            for n, row in res["rows"].items()) + f"; stats {res['stats']}"
+              + f"; peak memory {res['peak_mem_gib']:.3f} GiB"
+              + (f", graph pool {res['pool_bytes']} B" if "pool_bytes" in res
+                 else "")
+              + (f"; {SPEC_ROWS[-1]} rows x 64 tokens under the profiler: "
+                 f"{res['profile']}" if "profile" in res else ""))
+    print(f"speculative phase: graphed greedy tokens equal eager ones for "
+          f"plain and always at {SPEC_ROWS} rows; speculative path launches "
+          f"{launches} ({admissions} prefills)")
     if launches != {**dict.fromkeys(launches, 0),
                     "flash_fwd": cfg.n_layers * admissions}:
         raise AssertionError(f"speculative path launches {launches} for "
@@ -1300,10 +1511,12 @@ def main() -> None:
     bwd = backward_phase(card)
     serve = serving_phase(card)
     parity_phase()
+    graphed = graphs_phase(card)
     int8 = int8_serving_phase(card, serve["greedy"])
     server_cli_phase(card)
     spec = speculative_phase(card)
     distill_cli_phase(card)
+    bench_phase(card)
     trained = training_phase(card)
     two_pass = two_pass_phase()
     train_parity_phase()
@@ -1311,6 +1524,7 @@ def main() -> None:
     # each path's launches, counted from 0 just before it ran and read just
     # after; "launches" is their sum
     by_path = {"serving": serve["launches"], "int8_serving": int8["launches"],
+               "graphs": graphed["launches"],
                "distill": spec["distill_launches"],
                "speculative": spec["launches"], "train": trained["launches"],
                "two_pass": two_pass}

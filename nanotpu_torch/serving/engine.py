@@ -25,13 +25,19 @@ port of ``nanotpu/serving/engine.py``.
   K tokens per cycle, the target verifies the whole slot batch in one
   forward at per-row frontiers, and each row advances by its own
   acceptance; a policy picks plain or speculative chunks per host sync.
+* **CUDA graphs.** On a card the engine captures its decode step and each
+  speculative cycle as a CUDA graph at warm-up (:mod:`.graphs`), and a
+  chunk replays one a step: the counterpart of the JAX engine's compiled
+  chunk. On the CPU the same bodies run eagerly.
 
-The caches are updated in place (the JAX engine donates its buffers to the
-same end). MoE and meshes are not ported yet.
+The caches and the decode carry are allocated once and updated in place
+(the JAX engine donates its buffers to the same end), so a graph's
+addresses hold. MoE and meshes are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 import math
@@ -69,6 +75,7 @@ from nanotpu_torch.models.speculative import (
     sample_probs,
 )
 from nanotpu_torch.ops import _build
+from nanotpu_torch.serving.graphs import DecodeBuffers, StepGraph
 
 log = logging.getLogger("nanotpu_torch.serving")
 
@@ -259,29 +266,45 @@ def serving_step(params, cfg, cache, tokens, active, temps, generator,
     return torch.where(temps > 0, sampled, greedy), new_cache
 
 
+def serving_chunk_step(params, cfg, cache, tokens, done, temps, remaining,
+                       generator, eos_id: int = -1, top_k: int = 0,
+                       top_p: float = 1.0):
+    """One step of :func:`serving_chunk` (the body of nanotpu's scan, and
+    what the engine captures as a CUDA graph): a decode step plus the
+    freeze rule. A row freezes when it emits ``eos_id`` or its
+    ``remaining`` budget hits zero; frozen rows re-feed their token and do
+    not advance their length.
+
+    Returns (cache, tokens, done, remaining), each a new value: the cache's
+    k/v are written in place, its ``lengths`` is a new tensor."""
+    active = ~done
+    nxt, cache = serving_step(
+        params, cfg, cache, tokens, active, temps, generator,
+        top_k=top_k, top_p=top_p,
+    )
+    tokens = torch.where(done, tokens, nxt)  # frozen rows hold theirs
+    remaining = remaining - active.to(remaining.dtype)
+    done = done | (remaining <= 0)
+    if eos_id >= 0:
+        done = done | (tokens == eos_id)
+    return cache, tokens, done, remaining
+
+
 def serving_chunk(params, cfg, cache, tokens, done, temps, remaining,
                   generator, n_steps: int, eos_id: int = -1, top_k: int = 0,
                   top_p: float = 1.0):
     """``n_steps`` decode steps with tokens/done/remaining kept on the
-    device (the JAX engine's ``lax.scan`` chunk as a loop): no step waits
-    on the host. A row freezes when it emits ``eos_id`` or its
-    ``remaining`` budget hits zero; frozen rows re-feed their token and do
-    not advance their length.
+    device (the JAX engine's ``lax.scan`` chunk as a loop of
+    :func:`serving_chunk_step`): no step waits on the host.
 
     Returns (cache, tokens, done, remaining, toks [n_steps, SLOTS]) with
     ``toks`` still on the device; the caller fetches it in one sync."""
     toks = []
     for _ in range(n_steps):
-        active = ~done
-        nxt, cache = serving_step(
-            params, cfg, cache, tokens, active, temps, generator,
-            top_k=top_k, top_p=top_p,
+        cache, tokens, done, remaining = serving_chunk_step(
+            params, cfg, cache, tokens, done, temps, remaining, generator,
+            eos_id=eos_id, top_k=top_k, top_p=top_p,
         )
-        tokens = torch.where(done, tokens, nxt)  # frozen rows hold theirs
-        remaining = remaining - active.to(remaining.dtype)
-        done = done | (remaining <= 0)
-        if eos_id >= 0:
-            done = done | (tokens == eos_id)
         toks.append(tokens)
     return cache, tokens, done, remaining, torch.stack(toks)
 
@@ -373,25 +396,45 @@ def speculative_serving_chunk(params, draft_params, cfg, dcfg, cache,
 
     Returns (cache, d_cache, tokens, done, remaining, emits [n_cycles,
     SLOTS, K+1], counts [n_cycles, SLOTS]), the last two still on the
-    device. A row freezes when its valid emitted prefix holds ``eos_id`` or
-    its budget runs out; per-cycle counts may overshoot ``remaining`` by up
-    to K, and the host replay trims to the budget."""
-    K = draft_tokens
+    device. Per-cycle counts may overshoot ``remaining`` by up to K, and
+    the host replay trims to the budget."""
     emits, counts = [], []
     for _ in range(n_cycles):
-        cache, d_cache, tokens, emit, count = speculative_serving_cycle(
-            params, draft_params, cfg, dcfg, cache, d_cache, tokens, ~done,
-            temps, generator, K, top_k=top_k, top_p=top_p,
-        )
-        remaining = remaining - count
-        done = done | (remaining <= 0)
-        if eos_id >= 0:
-            valid = torch.arange(K + 1, device=emit.device)[None, :] < count[:, None]
-            done = done | (valid & (emit == eos_id)).any(dim=1)
+        cache, d_cache, tokens, done, remaining, emit, count = (
+            speculative_chunk_cycle(
+                params, draft_params, cfg, dcfg, cache, d_cache, tokens, done,
+                temps, remaining, generator, draft_tokens, eos_id=eos_id,
+                top_k=top_k, top_p=top_p,
+            ))
         emits.append(emit)
         counts.append(count)
     return (cache, d_cache, tokens, done, remaining, torch.stack(emits),
             torch.stack(counts))
+
+
+def speculative_chunk_cycle(params, draft_params, cfg, dcfg, cache, d_cache,
+                            tokens, done, temps, remaining, generator,
+                            draft_tokens: int, eos_id: int = -1,
+                            top_k: int = 0, top_p: float = 1.0):
+    """One cycle of :func:`speculative_serving_chunk` (what the engine
+    captures as a CUDA graph): a speculative cycle plus the freeze rule. A
+    row freezes when its valid emitted prefix holds ``eos_id`` or its
+    budget runs out.
+
+    Returns (cache, d_cache, tokens, done, remaining, emit [SLOTS, K+1],
+    counts [SLOTS]), each a new value: both caches' k/v are written in
+    place, their ``lengths`` are new tensors."""
+    K = draft_tokens
+    cache, d_cache, tokens, emit, count = speculative_serving_cycle(
+        params, draft_params, cfg, dcfg, cache, d_cache, tokens, ~done,
+        temps, generator, K, top_k=top_k, top_p=top_p,
+    )
+    remaining = remaining - count
+    done = done | (remaining <= 0)
+    if eos_id >= 0:
+        valid = torch.arange(K + 1, device=emit.device)[None, :] < count[:, None]
+        done = done | (valid & (emit == eos_id)).any(dim=1)
+    return cache, d_cache, tokens, done, remaining, emit, count
 
 
 def prefill_cache_only(params, cfg, prompt_padded, max_len: int):
@@ -563,6 +606,11 @@ class Engine:
 
     The draft's cache is always plain, whatever ``kv_int8`` says: at one or
     two layers it is small next to the target's.
+
+    ``cuda_graphs`` replays each decode step and speculative cycle as a
+    CUDA graph captured at warm-up: on by default on a ``cuda`` device, off
+    on the CPU (where ``True`` raises). ``False`` on a card runs the same
+    bodies eagerly.
     """
 
     #: EWMA weight of one new tokens/s sample (the engine's rate and the
@@ -578,8 +626,15 @@ class Engine:
                  top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                  chunk_steps: int = 32, chunk_steps_max: int = 96,
                  kv_int8: bool = False, draft_params=None, draft_cfg=None,
-                 draft_tokens: int = 4, spec_policy="auto", device=None):
+                 draft_tokens: int = 4, spec_policy="auto", device=None,
+                 cuda_graphs: bool | None = None):
         self.device = resolve_device(device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        elif cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a cuda device, not "
+                             f"{self.device}")
+        self.cuda_graphs = cuda_graphs
         # the norm gains are never quantized: their device is the tree's
         on = params["final_norm"].device
         if on.type != self.device.type:
@@ -674,9 +729,15 @@ class Engine:
         self._done = np.ones((slots,), np.bool_)  # empty slots are frozen
         self._remaining = np.zeros((slots,), np.int32)
         self._dirty = True
-        # device-resident copies, carried across chunks
-        self._d_tokens = self._d_temps = None
-        self._d_done = self._d_remaining = None
+        # their device copies, carried across chunks, and each chunk's
+        # output blocks: fixed tensors that every decode unit reads
+        self._bufs = DecodeBuffers(slots, self.chunk_steps_max, variant_ks,
+                                   self.device)
+        #: K -> the callable that runs one unit of that kind (0: a plain
+        #: step), set at warm-up: a graph's replay, or the eager body
+        self._units: dict[int, object] = {}
+        #: K -> the captured :class:`~.graphs.StepGraph` (graph mode)
+        self.graphs: dict[int, StepGraph] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: deque[Request] = deque()
         self._cv = threading.Condition()
@@ -733,10 +794,11 @@ class Engine:
         return req.out
 
     def wait_warm(self, timeout: float | None = None) -> bool:
-        """Block until the kernel library is built and one warm-up prefill
-        and decode chunk (and with a draft, one draft prefill and one
-        speculative cycle) have run, so none lands inside the first
-        request's time to first token."""
+        """Block until the kernel library is built, one warm-up prefill
+        (and with a draft, one draft prefill) has run, and every decode
+        unit the policy can pick has run once and, in graph mode, been
+        captured, so none of it lands inside the first request's time to
+        first token. Raises ``RuntimeError`` if any of it failed."""
         ready = self._warm.wait(timeout)
         if self._warm_error is not None:
             raise RuntimeError("engine warm-up failed") from self._warm_error
@@ -747,6 +809,12 @@ class Engine:
             self._stop = True
             self._cv.notify()
         self._thread.join(timeout=30)
+        if not self._thread.is_alive():
+            # the units hold bound methods of this engine: drop the cycle
+            # and the graphs' memory now, not at a later collection
+            self._units.clear()
+            for graph in self.graphs.values():
+                graph.release()
 
     def metrics(self) -> dict:
         """Cheap feedback snapshot with the JAX engine's key set (the
@@ -832,33 +900,66 @@ class Engine:
         return self.buckets[-1]
 
     def _warm_up(self) -> None:
-        """Build the kernel library and run one prefill at the smallest
-        bucket plus one decode chunk with every slot frozen (writes land in
-        empty rows, which admission overwrites whole); with a draft, one
-        draft prefill and one speculative cycle too."""
+        """Build the kernel library, run one prefill at the smallest bucket
+        (with a draft, one draft prefill too), and run each decode unit the
+        policy can pick eagerly; in graph mode, then capture it. Every slot
+        is frozen meanwhile (the buffers' initial state): the units' writes
+        land in empty rows, which admission overwrites whole, and no
+        length, token or budget moves."""
         if self.device.type == "cuda":
             _build.build_all()
         padded = torch.zeros((1, self.buckets[0]), dtype=torch.long,
                              device=self.device)
         prefill_request(self.params, self.cfg, padded, 1, self.max_len, 0.0,
                         self._gen)
-        frozen = torch.ones((self.slots,), dtype=torch.bool, device=self.device)
-        zeros = torch.zeros((self.slots,), dtype=torch.long, device=self.device)
-        self._cache, *_ = serving_chunk(
-            self.params, self.cfg, self._cache, zeros, frozen,
-            zeros.float(), zeros.int(), self._gen, n_steps=1,
-        )
         if self.draft_params is not None and self.spec_rules:
             prefill_cache_only(self.draft_params, self.draft_cfg, padded,
                                self.max_len)
-            self._cache, self._d_cache, *_ = speculative_serving_chunk(
-                self.params, self.draft_params, self.cfg, self.draft_cfg,
-                self._cache, self._d_cache, zeros, frozen, zeros.float(),
-                zeros.int(), self._gen, n_cycles=1,
-                draft_tokens=max(self._variant_ks),
-            )
+        if self.cuda_graphs:
+            # one pool for all of this engine's graphs: they never run at
+            # once, and each keeps its outputs in the fixed buffers
+            pool = torch.cuda.graph_pool_handle()
+            stream = torch.cuda.Stream(self.device)
+        for k in self._variant_ks:
+            body = (self._plain_unit if k == 0
+                    else functools.partial(self._spec_unit, k))
+            if self.cuda_graphs:  # eager warm runs, then the capture
+                self.graphs[k] = StepGraph(body, self._gen, pool, stream)
+                body = self.graphs[k].replay
+            else:
+                body()
+            self._units[k] = body
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _plain_unit(self) -> None:
+        """One decode step on the fixed tensors: the body of the plain
+        graph."""
+        b = self._bufs
+        cache, tokens, done, remaining = serving_chunk_step(
+            self.params, self.cfg, self._cache, b.tokens, b.done, b.temps,
+            b.remaining, self._gen, eos_id=self.eos_id, top_k=self.top_k,
+            top_p=self.top_p,
+        )
+        self._cache.lengths.copy_(cache.lengths)
+        b.carry(tokens, done, remaining)
+        b.record((b.toks, tokens))
+
+    def _spec_unit(self, k: int) -> None:
+        """One speculative cycle proposing ``k`` tokens on the fixed
+        tensors: the body of the graph for ``k``."""
+        b = self._bufs
+        cache, d_cache, tokens, done, remaining, emit, count = (
+            speculative_chunk_cycle(
+                self.params, self.draft_params, self.cfg, self.draft_cfg,
+                self._cache, self._d_cache, b.tokens, b.done, b.temps,
+                b.remaining, self._gen, k, eos_id=self.eos_id,
+                top_k=self.top_k, top_p=self.top_p,
+            ))
+        self._cache.lengths.copy_(cache.lengths)
+        self._d_cache.lengths.copy_(d_cache.lengths)
+        b.carry(tokens, done, remaining)
+        b.record((b.emits[k], emit), (b.counts[k], count))
 
     def _admit_all(self) -> None:
         """Move queued requests into free slots. Prefills are enqueued per
@@ -892,7 +993,7 @@ class Engine:
                 self.params, self.cfg, padded, S, self.max_len,
                 req.temperature, self._gen, top_k=self.top_k, top_p=self.top_p,
             )
-            self._cache = insert_request(self._cache, ks, vs, slot, S)
+            insert_request(self._cache, ks, vs, slot, S)
             if self._d_cache is not None:
                 # prime the draft row only when the occupancy after this
                 # admission could speculate (the measured policy always
@@ -904,8 +1005,7 @@ class Engine:
                     dks, dvs = prefill_cache_only(
                         self.draft_params, self.draft_cfg, padded,
                         self.max_len)
-                    self._d_cache = insert_request(self._d_cache, dks, dvs,
-                                                   slot, S)
+                    insert_request(self._d_cache, dks, dvs, slot, S)
                     self._draft_stale.discard(slot)
                 else:
                     self._draft_stale.add(slot)
@@ -1022,23 +1122,18 @@ class Engine:
             dks, dvs = prefill_cache_only(
                 self.draft_params, self.draft_cfg,
                 torch.from_numpy(padded).to(self.device), self.max_len)
-            self._d_cache = insert_rows(
-                self._d_cache, dks, dvs, [i for i, _, _ in rows],
-                [t_len for _, t_len, _ in rows])
+            insert_rows(self._d_cache, dks, dvs, [i for i, _, _ in rows],
+                        [t_len for _, t_len, _ in rows])
 
     def _decode_cycle(self) -> None:
         """One chunk of decode steps or speculative cycles, then host-side
         bookkeeping. The device carries tokens/done/remaining between
         chunks; the host mirrors go up only when admission or eviction
         changed them, and the chunk's tokens come back in one fetch."""
+        bufs = self._bufs
         if self._dirty:
-            def up(a):
-                return torch.from_numpy(a).to(self.device)
-
-            self._d_tokens = up(self._tokens)
-            self._d_temps = up(self._temps)
-            self._d_done = up(self._done)
-            self._d_remaining = up(self._remaining)
+            bufs.upload(self._tokens, self._temps, self._done,
+                        self._remaining)
             self._dirty = False
         # Chunk policy: an oversized chunk is harmless to correctness (rows
         # freeze on device), so the only reason to run a small one is
@@ -1062,19 +1157,15 @@ class Engine:
         t_chunk = time.perf_counter()
         cold = (k, flavor) not in self._chunk_seen
         self._chunk_seen.add((k, flavor))
+        bufs.start()
+        unit = self._units[k]
+        for _ in range(n_units):
+            unit()
         if k > 0:
-            (
-                self._cache, self._d_cache, self._d_tokens, self._d_done,
-                self._d_remaining, emits, counts,
-            ) = speculative_serving_chunk(
-                self.params, self.draft_params, self.cfg, self.draft_cfg,
-                self._cache, self._d_cache, self._d_tokens, self._d_done,
-                self._d_temps, self._d_remaining, self._gen, n_cycles=n_units,
-                draft_tokens=k, eos_id=self.eos_id, top_k=self.top_k,
-                top_p=self.top_p,
-            )
             # emits [n_cycles, SLOTS, K+1] and counts [n_cycles, SLOTS] in
             # the one host sync
+            emits = bufs.emits[k][:n_units]
+            counts = bufs.counts[k][:n_units]
             host = torch.cat([emits.flatten(), counts.flatten().long()])
             host = host.cpu().numpy()
             emits = host[:emits.numel()].reshape(emits.shape)
@@ -1086,16 +1177,8 @@ class Engine:
                 return [int(t) for c in range(emits.shape[0])
                         for t in emits[c, i, :counts[c, i]]]
         else:
-            (
-                self._cache, self._d_tokens, self._d_done, self._d_remaining,
-                toks,
-            ) = serving_chunk(
-                self.params, self.cfg, self._cache, self._d_tokens,
-                self._d_done, self._d_temps, self._d_remaining, self._gen,
-                n_steps=n_units, eos_id=self.eos_id, top_k=self.top_k,
-                top_p=self.top_p,
-            )
-            toks = toks.cpu().numpy()  # [n_steps, SLOTS]; the one host sync
+            # [n_steps, SLOTS]; the one host sync
+            toks = bufs.toks[:n_units].cpu().numpy()
             if self.spec_rules:
                 # the target moved on and the draft did not
                 self._draft_stale.update(

@@ -518,3 +518,214 @@ def test_reprime_draft_after_plain_phase_on_card(card):
         assert req.out == tg.generate(params, torch.tensor([prompt],
                                                            device=card),
                                       cfg, n)[0].tolist()
+
+
+# -- CUDA graphs of the decode step and the speculative cycle ---------------
+
+def _bf16(tree):
+    from nanotpu_torch.tree import map_tree
+
+    return map_tree(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t,
+                    tree)
+
+
+def _engine_run(params, cfg, prompts, n, temperature=0.0, slots=4,
+                max_len=128, buckets=(16, 64), **kw):
+    """(tokens of each request, the stopped engine): an engine on the card
+    over ``params``, warmed up and driven with every prompt at once."""
+    from nanotpu_torch.serving.engine import Engine
+
+    eng = Engine(params, cfg, slots=slots, max_len=max_len, buckets=buckets,
+                 device="cuda", **kw)
+    try:
+        assert eng.wait_warm(300)
+        reqs = [eng.submit(p, n, temperature) for p in prompts]
+        for r in reqs:
+            assert r.wait(300) and r.error is None, r.error
+    finally:
+        eng.stop()
+    return [r.out for r in reqs], eng
+
+
+def _self_draft(params, cfg):
+    return dict(draft_params=params, draft_tokens=3, spec_policy="always",
+                draft_cfg=dataclasses.replace(cfg, attn_impl="dense"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavour", ["bf16", "kv_int8", "spec_f32"])
+def test_graphed_engine_greedy_equals_eager(card, flavour):
+    """The graphed engine's greedy tokens equal the eager engine's, token
+    for token: bf16, the int8 KV cache, and f32 speculation with the target
+    as its own draft. The graphed engine captured one graph per K the
+    policy can pick and replayed each; the eager one captured none."""
+    cfg, _, _, (params, _) = _serving_models(card)
+    kw = {}
+    if flavour == "bf16":
+        cfg, params = dataclasses.replace(cfg, dtype="bfloat16"), _bf16(params)
+    elif flavour == "kv_int8":
+        kw = dict(kv_int8=True)
+    else:
+        kw = _self_draft(params, cfg)
+    prompts = [[3, 1, 4, 1, 5], list(range(40)), [9], [7] * 60]
+    outs = {}
+    for graphs in (False, True):
+        outs[graphs], eng = _engine_run(params, cfg, prompts, 24,
+                                        cuda_graphs=graphs, **kw)
+        if graphs:
+            assert set(eng.graphs) == set(eng._variant_ks)
+            assert all(g.replays > 0 for g in eng.graphs.values())
+        else:
+            assert eng.graphs == {}
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True])
+def test_graphed_sampling_draws_fresh_noise_each_replay(card, spec):
+    """A flat next-token distribution (a zero lm_head, 256 tokens): a
+    sampled row's tokens from successive replays differ. A graph that
+    reused its captured uniforms would repeat one token a step (a few a
+    cycle)."""
+    cfg, _, _, (params, _) = _serving_models(card)
+    flat = {**params, "lm_head": torch.zeros_like(params["lm_head"])}
+    kw = _self_draft(flat, cfg) if spec else {}
+    outs, eng = _engine_run(flat, cfg, [[3, 1, 4], [2, 7]], 48,
+                            temperature=1.0, **kw)
+    assert eng.graphs and all(g.replays > 0 for g in eng.graphs.values())
+    for out in outs:
+        assert len(set(out[1:])) > 16, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True])
+def test_graphed_sampled_output_matches_generate_distribution(card, spec):
+    """Per-position marginals of the graphed engine's sampled tokens (T=0.8,
+    sharpened heads, a plain engine or "always" speculation with the
+    distilled-shape draft) against sampled generate on the card, within
+    tests/test_torch_speculative.py's bound: TV < 0.12 at 1536 samples a
+    side."""
+    cfg, dcfg, _, (params, draft) = _serving_models(card)
+    target = {**params, "lm_head": params["lm_head"] * 25.0}
+    kw = {}
+    if spec:
+        kw = dict(draft_params={**draft, "lm_head": target["lm_head"]},
+                  draft_cfg=dcfg, draft_tokens=3, spec_policy="always")
+    B, T, n_seeds, prompt = 64, 0.8, 24, [3, 1, 4, 1, 5]
+    outs, eng = _engine_run(target, cfg, [prompt] * (B * n_seeds), 3,
+                            temperature=T, slots=B, max_len=32,
+                            buckets=(16,), **kw)
+    assert eng.graphs and all(g.replays > 0 for g in eng.graphs.values())
+    got = torch.tensor(outs)
+    want = torch.cat([
+        tg.generate(target, torch.tensor([prompt] * B, device=card), cfg, 3,
+                    temperature=T,
+                    generator=torch.Generator(device=card).manual_seed(i))
+        for i in range(n_seeds)]).cpu()
+    V = cfg.vocab_size
+    for pos in range(3):
+        f_got = torch.bincount(got[:, pos], minlength=V) / len(got)
+        f_want = torch.bincount(want[:, pos], minlength=V) / len(want)
+        tv = 0.5 * (f_got - f_want).abs().sum().item()
+        assert tv < 0.12, (pos, tv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_graphed_engine_keeps_its_tensors_in_place(card, kv_int8):
+    """Admission, the draft's re-prime (a plain phase at 2 active rows,
+    then speculation at 1) and graphed chunks of both kinds write the
+    caches and the decode carry in place: no plane's data_ptr() moves, and
+    the tokens stay the plain greedy ones."""
+    from nanotpu_torch.serving.engine import Engine
+
+    cfg, dcfg, _, (params, draft) = _serving_models(card)
+    eng = Engine(params, cfg, slots=4, max_len=128, buckets=(16, 32),
+                 chunk_steps=4, chunk_steps_max=8, draft_params=draft,
+                 draft_cfg=dcfg, draft_tokens=3, spec_policy=[(1, 3)],
+                 kv_int8=kv_int8, device=card)
+
+    def pointers():
+        b = eng._bufs
+        planes = [b.tokens, b.temps, b.done, b.remaining, b.step, b.toks,
+                  *b.emits.values(), *b.counts.values()]
+        for cache in (eng._cache, eng._d_cache):
+            for field in cache:
+                planes += field if isinstance(field, tuple) else [field]
+        return [t.data_ptr() for t in planes]
+
+    reprimes = []
+    reprime = eng._reprime_draft
+
+    def spy():
+        reprimes.append(sorted(eng._draft_stale))
+        reprime()
+
+    eng._reprime_draft = spy
+    try:
+        assert eng.wait_warm(300)
+        before = pointers()
+        long_req = eng.submit([5, 3, 1], 40)
+        short_req = eng.submit([2, 7, 1, 8], 6)
+        assert short_req.wait(120) and short_req.error is None
+        assert long_req.wait(120) and long_req.error is None
+        torch.cuda.synchronize()
+        assert pointers() == before
+        assert reprimes, "re-prime path never exercised"
+        assert eng.graphs[0].replays > 0 and eng.graphs[3].replays > 0
+    finally:
+        eng.stop()
+    if not kv_int8:
+        for req, prompt, n in ((long_req, [5, 3, 1], 40),
+                               (short_req, [2, 7, 1, 8], 6)):
+            assert req.out == tg.generate(
+                params, torch.tensor([prompt], device=card), cfg,
+                n)[0].tolist()
+
+
+@pytest.mark.cuda
+def test_a_step_that_reads_the_host_fails_to_capture(card):
+    """A host read inside the body breaks the capture, which raises; the
+    device serves on afterwards."""
+    from nanotpu_torch.serving.graphs import StepGraph
+
+    x = torch.zeros(4, device=card)
+
+    def body():
+        x.add_(1)
+        if x.sum().item() < 0:
+            x.zero_()
+
+    with pytest.raises(RuntimeError):
+        StepGraph(body, torch.Generator(device=card),
+                  torch.cuda.graph_pool_handle(), torch.cuda.Stream(card))
+    assert torch.ones(3, device=card).sum().item() == 3
+
+
+@pytest.mark.cuda
+def test_engine_warm_up_fails_when_its_step_cannot_be_captured(card,
+                                                               monkeypatch):
+    """A copy of the decode step with a host read in it: the engine's
+    capture fails, wait_warm raises, and the engine serves nothing (no
+    eager fallback)."""
+    from nanotpu_torch.serving import engine as te
+
+    step = te.serving_chunk_step
+
+    def with_a_host_read(*args, **kw):
+        out = step(*args, **kw)
+        out[1].sum().item()
+        return out
+
+    monkeypatch.setattr(te, "serving_chunk_step", with_a_host_read)
+    cfg, _, _, (params, _) = _serving_models(card)
+    eng = te.Engine(params, cfg, slots=2, max_len=64, buckets=(16,),
+                    device=card)
+    try:
+        with pytest.raises(RuntimeError, match="warm-up failed"):
+            eng.wait_warm(300)
+        req = eng.submit([1, 2, 3], 4)
+        assert req.wait(10) and req.error == "engine stopped"
+    finally:
+        eng.stop()
+    assert torch.ones(3, device=card).sum().item() == 3

@@ -1097,3 +1097,186 @@ def test_server_flags_reach_the_engine(monkeypatch):
         tsrv.main(["--preset", "tiny", "--int8", "--kv-int8", "--device",
                    "cpu"])
     assert seen["quantize"] and seen["kv_int8"] and seen["preset"] == "tiny"
+
+
+# -- fourth group: the chunk bodies, and the engine's units on fixed tensors
+
+def unrefactored_serving_chunk(params, cfg, cache, tokens, done, temps,
+                               remaining, generator, n_steps, eos_id=-1,
+                               top_k=0, top_p=1.0):
+    """serving_chunk as it was before its body became serving_chunk_step."""
+    toks = []
+    for _ in range(n_steps):
+        active = ~done
+        nxt, cache = te.serving_step(
+            params, cfg, cache, tokens, active, temps, generator,
+            top_k=top_k, top_p=top_p,
+        )
+        tokens = torch.where(done, tokens, nxt)
+        remaining = remaining - active.to(remaining.dtype)
+        done = done | (remaining <= 0)
+        if eos_id >= 0:
+            done = done | (tokens == eos_id)
+        toks.append(tokens)
+    return cache, tokens, done, remaining, torch.stack(toks)
+
+
+def unrefactored_speculative_chunk(params, draft_params, cfg, dcfg, cache,
+                                   d_cache, tokens, done, temps, remaining,
+                                   generator, n_cycles, draft_tokens,
+                                   eos_id=-1, top_k=0, top_p=1.0):
+    """speculative_serving_chunk as it was before its body became
+    speculative_chunk_cycle."""
+    K = draft_tokens
+    emits, counts = [], []
+    for _ in range(n_cycles):
+        cache, d_cache, tokens, emit, count = te.speculative_serving_cycle(
+            params, draft_params, cfg, dcfg, cache, d_cache, tokens, ~done,
+            temps, generator, K, top_k=top_k, top_p=top_p,
+        )
+        remaining = remaining - count
+        done = done | (remaining <= 0)
+        if eos_id >= 0:
+            valid = torch.arange(K + 1)[None, :] < count[:, None]
+            done = done | (valid & (emit == eos_id)).any(dim=1)
+        emits.append(emit)
+        counts.append(count)
+    return (cache, d_cache, tokens, done, remaining, torch.stack(emits),
+            torch.stack(counts))
+
+
+#: the carry of the fourth group's chunks: a frozen row, per-row budgets,
+#: two greedy and two sampled rows (the bodies draw the same uniforms in the
+#: same order as the loops they came from, so sampled rows match exactly)
+CARRY = dict(tokens=[5, 6, 7, 8], done=[False, False, True, False],
+             temps=[0.0, 0.9, 0.0, 1.3], remaining=[9, 2, 0, 7])
+
+
+def carry():
+    return (torch.tensor(CARRY["tokens"]), torch.tensor(CARRY["done"]),
+            torch.tensor(CARRY["temps"]),
+            torch.tensor(CARRY["remaining"], dtype=torch.int32))
+
+
+def chunk_inputs(int8, spec):
+    """(target cache, draft cache or None) of the fourth group."""
+    lengths = [4, 6, 2, 8]
+    _, tc = cache_pair(int8, lengths, seed=8)
+    if not spec:
+        return tc, None
+    _, tdc = slot_caches(lengths, seed=9)
+    return tc, tdc._replace(k=tdc.k[:1], v=tdc.v[:1])
+
+
+def assert_same(a, b):
+    if isinstance(a, tuple):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            assert_same(x, y)
+    else:
+        assert torch.equal(a, b), (a, b)
+
+
+@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("eos", [-1, 7])
+def test_chunk_bodies_looped_equal_the_unrefactored_chunks(models, drafts,
+                                                           spec, int8, eos):
+    """serving_chunk (a loop of serving_chunk_step) and
+    speculative_serving_chunk (a loop of speculative_chunk_cycle) give the
+    outputs of the loops they were split out of, bit for bit: caches,
+    tokens, done flags, budgets and the token blocks."""
+    _, tparams = models
+    _, tdraft, dcfg = drafts
+    outs = []
+    for fns in ((te.serving_chunk, te.speculative_serving_chunk),
+                (unrefactored_serving_chunk, unrefactored_speculative_chunk)):
+        tc, tdc = chunk_inputs(int8, spec)
+        gen = torch.Generator().manual_seed(3)
+        with torch.inference_mode():
+            if spec:
+                outs.append(fns[1](tparams, tdraft, CFG_T, dcfg, tc, tdc,
+                                   *carry(), gen, n_cycles=4, draft_tokens=3,
+                                   eos_id=eos, top_k=50))
+            else:
+                outs.append(fns[0](tparams, CFG_T, tc, *carry(), gen,
+                                   n_steps=6, eos_id=eos, top_p=0.9))
+    assert_same(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("k", [0, 3])
+@pytest.mark.parametrize("int8", [False, True])
+def test_engine_units_on_fixed_tensors_equal_the_chunk(models, drafts, k,
+                                                       int8):
+    """The engine's unit bodies (what it captures as CUDA graphs on a card,
+    and runs eagerly here) replayed n times over its fixed tensors equal
+    one n-step chunk: the carry and the cache lengths are written back in
+    place, each unit's output lands in the next row of the chunk's block,
+    and no tensor the units read is replaced."""
+    _, tparams = models
+    _, tdraft, dcfg = drafts
+    policy = [(4, k)] if k else "off"
+    eng = te.Engine(tparams, CFG_T, slots=4, max_len=32, buckets=(16,),
+                    kv_int8=int8, draft_params=tdraft, draft_cfg=dcfg,
+                    draft_tokens=3, spec_policy=policy, eos_id=7,
+                    top_k=50, device="cpu")
+    assert eng.wait_warm(60)
+    eng.stop()
+    assert not eng.cuda_graphs and eng.graphs == {}
+    tc, tdc = chunk_inputs(int8, spec=k > 0)
+    for mine, theirs in ((eng._cache, tc), (eng._d_cache, tdc)):
+        for a, b in zip(mine, theirs or ()):
+            for x, y in zip(a if isinstance(a, tuple) else (a,),
+                            b if isinstance(b, tuple) else (b,)):
+                x.copy_(y)
+    tc, tdc = chunk_inputs(int8, spec=k > 0)
+    b = eng._bufs
+    tokens, done, temps, remaining = carry()
+    b.upload(tokens.numpy(), temps.numpy(), done.numpy(), remaining.numpy())
+    fixed = [t.data_ptr() for t in (b.tokens, b.done, b.remaining,
+                                    eng._cache.lengths, *eng._cache.k)]
+    n = 4
+    eng._gen = torch.Generator().manual_seed(5)
+    gen = torch.Generator().manual_seed(5)
+    with torch.inference_mode():
+        b.start()
+        for _ in range(n):
+            eng._spec_unit(k) if k else eng._plain_unit()
+        if k:
+            want = te.speculative_serving_chunk(
+                tparams, tdraft, CFG_T, dcfg, tc, tdc, tokens, done, temps,
+                remaining, gen, n_cycles=n, draft_tokens=k, eos_id=7,
+                top_k=50)
+            assert torch.equal(b.emits[k][:n], want[5])
+            assert torch.equal(b.counts[k][:n], want[6])
+            assert torch.equal(eng._d_cache.lengths, want[1].lengths)
+            carried = want[2:5]
+        else:
+            want = te.serving_chunk(tparams, CFG_T, tc, tokens, done, temps,
+                                    remaining, gen, n_steps=n, eos_id=7,
+                                    top_k=50)
+            assert torch.equal(b.toks[:n], want[4])
+            carried = want[1:4]
+    assert_same(eng._cache, want[0])
+    for got, w in zip((b.tokens, b.done, b.remaining), carried):
+        assert torch.equal(got, w)
+    assert int(b.step) == n
+    assert fixed == [t.data_ptr() for t in (b.tokens, b.done, b.remaining,
+                                            eng._cache.lengths,
+                                            *eng._cache.k)]
+
+
+def test_cuda_graphs_need_a_card(models):
+    """cuda_graphs=True refuses the CPU; the default there is eager."""
+    _, tparams = models
+    with pytest.raises(ValueError, match="cuda_graphs=True needs a cuda"):
+        te.Engine(tparams, CFG_T, slots=1, max_len=32, device="cpu",
+                  cuda_graphs=True)
+    eng = te.Engine(tparams, CFG_T, slots=1, max_len=32, buckets=(16,),
+                    device="cpu")
+    try:
+        assert eng.wait_warm(60)
+        assert eng.cuda_graphs is False and eng.graphs == {}
+        assert eng._units[0] == eng._plain_unit
+    finally:
+        eng.stop()
