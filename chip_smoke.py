@@ -78,12 +78,31 @@ them:
     kernels run on the path, 8 launches each;
 11. training parity phase: one f32 train step of the flagship width from
     the same parameters through ``attn_impl="flash"`` and ``"dense"``: close
-    loss, gradients and updated parameters.
+    loss, gradients and updated parameters;
+12. Mixtral kernel phase (run after phase 4): the forward and the fused
+    backward at Mixtral 8x7B's heads (32/8, head_dim 128, bf16) against
+    their plain versions and timed: the forward at the serving buckets
+    (B=1) and with lse at B=4, S=2048, the fused backward at B=4, S=2048;
+13. Mixtral training phase: Mixtral 8x7B's widths (vocab 32000, dim 4096,
+    32/8 heads, ffn 14336, 8 experts, top-2, capacity factor 1.25, bf16,
+    flash) cut to 2 layers, 10 steps of ``build_train_step`` with
+    ``mixtral.loss_fn`` at B=4, S=2048 on the Markov corpus: finite,
+    falling losses, the fused backward 2 launches a step; peak memory,
+    steady tokens/s and one step under the profiler, with the shares of
+    routing, dispatch and combine, experts, flash kernels and AdamW; then
+    the trainer's CLI with ``--model mixtral --preset tiny``;
+14. Mixtral serving phase: the same widths cut to 4 layers on an
+    ``Engine(params, MixtralConfig)`` (8 slots, max_len 2048) through the
+    serving phase's HTTP drive (the MoE drop counter on ``/v1/stats`` and
+    ``/metrics``) and measurements; co-batched equal to one at a time,
+    graphed equal to an eager twin (decode tokens/s and idle share of
+    each); then int8 weights and KV cache: tokens/s, parameter bytes and
+    the share of greedy tokens equal to bf16's.
 
 The last two lines are the kernel table and the device record, as JSON.
 Each path (serving, int8 serving, graphs, distill, speculative, training,
-two-pass) counts its kernel launches from 0 and reads them just after it
-ran; the table gives each path's count and their sum. A decode graph
+two-pass, and Mixtral's training, serving drive and serving rounds) counts
+its kernel launches from 0 and reads them just after it ran; the table gives each path's count and their sum. A decode graph
 captures no flash launch, so each serving path's count stays exact: the
 forward kernel once a layer for each prefill.
 Every phase that fails raises; nothing is caught.
@@ -565,6 +584,17 @@ def drive_http(engine, label: str) -> dict:
                        "nanotpu_serve_ttft_seconds"):
             if series not in metrics:
                 raise AssertionError(f"{label}: /metrics lacks {series}")
+        # the MoE prefill drop counter (0 for a dense model), the same on
+        # both routes as on the engine
+        dropped = [line.split()[1] for line in metrics.splitlines()
+                   if line.startswith(
+                       "nanotpu_serve_moe_prefill_dropped_tokens_total ")]
+        want = engine.moe_prefill_dropped_total
+        if (stats["moe_prefill_dropped_total"] != want
+                or [float(x) for x in dropped] != [want]):
+            raise AssertionError(
+                f"{label}: MoE drop counter {want}, /v1/stats "
+                f"{stats['moe_prefill_dropped_total']}, /metrics {dropped}")
     finally:
         server.shutdown()
         server.server_close()
@@ -583,7 +613,8 @@ def drive_http(engine, label: str) -> dict:
           f"launches {launches}")
     return {"greedy": [results[i]["tokens"] for i in range(len(PROMPT_LENS))],
             "ttft_ms": ttfts, "ttft_p50_ms": float(np.percentile(ttfts, 50)),
-            "launches": launches, "rng": rng}
+            "launches": launches, "rng": rng,
+            "moe_prefill_dropped_total": engine.moe_prefill_dropped_total}
 
 
 def serving_phase(card: str) -> dict:
@@ -750,11 +781,11 @@ def bench_phase(card: str) -> dict:
     return out
 
 
-def device_profile(fn, named: str = "") -> tuple:
+def device_profile(fn, named: tuple = ()) -> tuple:
     """(wall ms, device-busy ms, top kernels, device ms of the kernels
-    whose name holds ``named``) of one call of ``fn`` under the profiler;
-    busy time is the sum of the kernels' device time (one stream, so they
-    do not overlap). None where the profiler saw none."""
+    whose name holds one of ``named``) of one call of ``fn`` under the
+    profiler; busy time is the sum of the kernels' device time (one stream,
+    so they do not overlap). None where the profiler saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -770,7 +801,8 @@ def device_profile(fn, named: str = "") -> tuple:
     events = sorted(prof.key_averages(), key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events) / 1e3
     top = [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count) for e in events[:6]]
-    named_ms = sum(dev_us(e) for e in events if named and named in e.key) / 1e3
+    named_ms = sum(dev_us(e) for e in events
+                   if any(n in e.key for n in named)) / 1e3
     return wall * 1e3, (busy if busy > 0 else None), top, named_ms
 
 
@@ -1034,12 +1066,11 @@ def decode_round(engine, prompts, n_new) -> tuple:
 
 
 def bf16_copy(tree):
-    """The tree as the bf16 preset holds it: matrices in bf16, the norm
-    gains in f32 (``init_params`` draws in f32 and casts the matrices)."""
-    from nanotpu_torch.tree import map_tree
+    """The tree as a bf16 preset holds it: matrices in bf16, the norm gains
+    and a MoE router in f32 (``convert.cast_params``)."""
+    from nanotpu_torch.convert import cast_params
 
-    return map_tree(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t,
-                    tree)
+    return cast_params(tree, torch.bfloat16)
 
 
 def distill_draft(params, cfg, dcfg, lr: float, steps: int, seed: int):
@@ -1403,7 +1434,7 @@ def training_phase(card: str) -> dict:
     tokens = markov_batch(torch.Generator(device="cuda").manual_seed(9), table,
                           (TRAIN_B, TRAIN_S + 1))
     wall, busy, top, fused_ms = device_profile(lambda: step(state, tokens),
-                                               named="bwd_kv_bf16")
+                                               named=("bwd_kv_bf16",))
     share = "not measured" if busy is None else f"{100 * fused_ms / busy:.1f}%"
     print(f"one training step under the profiler on {card}: wall "
           f"{wall:.1f} ms, device busy "
@@ -1481,6 +1512,372 @@ def train_parity_phase() -> None:
         raise AssertionError("flash and dense f32 train steps disagree")
 
 
+#: Mixtral 8x7B's widths (nanotpu/parallel/train.py:219-222: vocab 32000,
+#: dim 4096, 32/8 heads of 128, ffn 14336, 8 experts, top-2, capacity factor
+#: 1.25, rope theta 1e6, bf16), cut in depth: the 32 layers (46.7 B
+#: parameters) fit no single card. Training keeps parameters, gradients and
+#: both moments (~8 B a parameter): 2 layers are 3.16 B parameters, ~25 GB.
+#: Serving at 4 layers holds 6.07 B parameters, 12.1 GB in bf16.
+MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS = 2, 4
+#: the Mixtral training batch: T = 4 x 2048 = 8192 tokens a step, so
+#: C = 2560 slots an expert and [T, E, C] f32 routing tensors of 671 MB
+MOE_TRAIN_B = 4
+#: the Mixtral serving rounds: SLOTS prompts of 64 tokens, this many new
+MOE_NEW = 128
+
+
+def mixtral_config(n_layers: int):
+    """Mixtral 8x7B's preset of the port's trainer at ``n_layers`` layers,
+    with flash attention."""
+    from nanotpu_torch.models.mixtral import MixtralConfig
+    from nanotpu_torch.parallel.train import _PRESETS
+
+    return MixtralConfig(**dict(_PRESETS[("mixtral", "8x7b")],
+                                n_layers=n_layers, attn_impl="flash"))
+
+
+def mixtral_kernel_phase(card: str) -> dict:
+    """The forward and the fused backward at Mixtral 8x7B's heads (32 over
+    8 at head_dim 128, bf16, causal): the forward at the serving buckets of
+    PROMPT_LENS (B=1) and, with lse, at the training shape (B=4, S=2048),
+    the fused backward at the training shape; each held against its plain
+    version (the forward's out and lse to TOLERANCE, the gradients row by
+    row as in the backward phase), then timed against its bound, the plain
+    version and SDPA."""
+    from nanotpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    H, KV, D, bf16 = 32, 8, 128, torch.bfloat16
+
+    def sdpa_ms(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+
+    rows = {"serve": {}}
+    for S in sorted({bucket(n) for n in PROMPT_LENS}):
+        q, k, v = qkv(gen, 1, S, H, KV, D, bf16)
+        ref_out, ref_lse = att.attention_lse_ref(q.float(), k.float(),
+                                                 v.float(), True)
+        err = check_forward(f"Mixtral B=1 S={S} 32/8 D=128 bfloat16 causal",
+                            att.flash_attention(q, k, v, True), None,
+                            ref_out, ref_lse, bf16)
+        bound_ms, bound_by = attention_bound_ms(1, S, H, KV, D, bf16)
+        rows["serve"][S] = {
+            "ms": cuda_ms(lambda: att.flash_attention(q, k, v, True)),
+            "plain_ms": cuda_ms(lambda: att.attention_lse_ref(q, k, v, True),
+                                reps=5),
+            "library_ms": sdpa_ms(q, k, v), "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+        print(f"Mixtral flash_fwd B=1 S={S} 32/8 D=128 on {card}: "
+              f"{rows['serve'][S]}")
+
+    B, S = MOE_TRAIN_B, TRAIN_S
+    q, k, v = qkv(gen, B, S, H, KV, D, bf16)
+    out, lse = att.flash_attention(q, k, v, True, need_lse=True)
+    ref_out, ref_lse = att.attention_lse_ref(q.float(), k.float(), v.float(),
+                                             True)
+    fwd_err = check_forward(f"Mixtral B={B} S={S} 32/8 D=128 bfloat16 causal "
+                            f"lse=True (training shape)", out, lse, ref_out,
+                            ref_lse, bf16)
+    del ref_out, ref_lse
+    dout = torch.randn((B, S, H, D), generator=gen, device="cuda").to(bf16)
+    dvec = att._dvec(out, dout)
+    want = att.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                 lse, dout.float(), True)
+    got = run_bwd("flash_bwd_fused", q, k, v, dout, lse, dvec)
+    torch.cuda.synchronize()
+    bwd_err, of_largest, row_err = grad_errs(got, want)
+    print(f"Mixtral flash_bwd_fused B={B} S={S} 32/8 D=128 bf16 causal: max "
+          f"abs err {bwd_err:.3g}, of the largest gradient {of_largest:.3g}, "
+          f"row-scaled {row_err:.3g} (tol {TOLERANCE[bf16]} row-scaled)")
+    if not row_err <= TOLERANCE[bf16]:
+        raise AssertionError(f"Mixtral fused backward disagrees with "
+                             f"attention_bwd_ref: {row_err}")
+    del want, got
+
+    bound_ms, bound_by = attention_bound_ms(B, S, H, KV, D, bf16)
+    rows["train"] = {
+        "ms": cuda_ms(lambda: att.flash_attention(q, k, v, True,
+                                                  need_lse=True)),
+        "plain_ms": cuda_ms(lambda: att.attention_lse_ref(q, k, v, True),
+                            reps=3),
+        "library_ms": sdpa_ms(q, k, v), "bound_ms": bound_ms,
+        "bound_by": bound_by, "max_abs_err": fwd_err}
+    qt, kt, vt, dt = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    sdpa_bwd = (cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt))
+                - cuda_ms(sdpa))
+    bound_ms, bound_by = bwd_bound_ms(B, S, H, KV, D, 5, "q kv")
+    rows["bwd"] = {
+        "ms": cuda_ms(lambda: run_bwd("flash_bwd_fused", q, k, v, dout, lse,
+                                      dvec)),
+        "plain_ms": cuda_ms(lambda: att.attention_bwd_ref(
+            q, k, v, out, lse, dout, True), reps=3),
+        "library_ms": sdpa_bwd, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": bwd_err}
+    print(f"Mixtral training shape B={B} S={S} 32/8 D=128 bf16 causal on "
+          f"{card}: flash_fwd with lse {rows['train']}; flash_bwd_fused "
+          f"{rows['bwd']}")
+    reset_launches()  # comparisons and timings do not count
+    return rows
+
+
+def moe_component_ms(cfg, params: dict, T: int) -> dict:
+    """CUDA-event milliseconds of one layer's forward and backward parts at
+    T tokens, the autograd graph as the training step builds it: the
+    routing (``route_topk`` from f32 logits), the dispatch and combine
+    einsums (the [T, E, C] products), and the experts' SwiGLU products."""
+    from nanotpu_torch.models import mixtral
+
+    E, dt = cfg.n_experts, cfg.torch_dtype
+    C = max(1, int(np.ceil(cfg.capacity_factor * T * cfg.top_k / E)))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, grad=True):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        return x.requires_grad_(grad)
+
+    logits = torch.randn((T, E), generator=gen, device="cuda",
+                         requires_grad=True)
+
+    def routing():
+        _, combine, aux = mixtral.route_topk(logits, cfg)
+        torch.autograd.grad((combine.sum() + aux), logits)
+
+    dispatch = (torch.rand((T, E, C), generator=gen, device="cuda")
+                < 1 / C).to(dt)
+    combine, flat, expert_out = randn(T, E, C), randn(T, cfg.dim), randn(
+        E, C, cfg.dim)
+    g_in, g_out = randn(E, C, cfg.dim, grad=False), randn(T, cfg.dim,
+                                                          grad=False)
+
+    def dispatch_combine():
+        expert_in = torch.einsum("tec,td->ecd", dispatch, flat)
+        out = torch.einsum("tec,ecd->td", combine, expert_out)
+        torch.autograd.grad((expert_in, out), (flat, combine, expert_out),
+                            (g_in, g_out))
+
+    moe = params["layers"][0]["moe"]
+    expert_in = randn(E, C, cfg.dim)
+
+    def experts():
+        gate = F.silu(torch.einsum("ecd,edf->ecf", expert_in, moe["w_gate"]))
+        up = torch.einsum("ecd,edf->ecf", expert_in, moe["w_up"])
+        y = torch.einsum("ecf,efd->ecd", gate * up, moe["w_down"])
+        torch.autograd.grad(y, (expert_in, moe["w_gate"], moe["w_up"],
+                                moe["w_down"]), g_in)
+
+    return {"routing": cuda_ms(routing, reps=5),
+            "dispatch_combine": cuda_ms(dispatch_combine, reps=5),
+            "experts": cuda_ms(experts, reps=5)}
+
+
+def mixtral_training_phase(card: str) -> dict:
+    """Mixtral 8x7B's widths at MOE_TRAIN_LAYERS layers through the
+    trainer's functions (``init_train_state(init_fn=mixtral.init_params)``,
+    ``build_train_step(loss_fn=mixtral.loss_fn)``), on the Markov corpus at
+    B=4, S=2048 for TRAIN_STEPS steps: finite losses, lower at the last step
+    than at the first, the fused backward launched once a layer a step and
+    the forward at least once; peak memory, steady tokens/s, and one step
+    under the profiler with the shares of its device time that the routing,
+    the dispatch and combine einsums, the expert products (each timed by
+    CUDA events at the step's shapes, once a layer), the flash kernels (from
+    the profile) and AdamW (timed on the step's gradients) take. Then the
+    CLI, ``--model mixtral --preset tiny``, trains a few steps (dense
+    attention: the tiny preset's head_dim 16 has no kernel)."""
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import llama, mixtral
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.tree import leaves
+
+    cfg = mixtral_config(MOE_TRAIN_LAYERS)
+    B, S, n = MOE_TRAIN_B, TRAIN_S, TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt = train.make_optimizer()
+    state = train.init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, opt,
+        device="cuda", init_fn=mixtral.init_params)
+    n_params = llama.param_count(state.params)
+    step = train.build_train_step(cfg, opt, loss_fn=mixtral.loss_fn)
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(1),
+                           table, (n, B, S + 1))
+    reset_launches()
+    losses = []
+    for i in range(n):
+        state, loss = step(state, batches[i])
+        losses.append(loss)
+        if i == 0:  # the first step (allocation, kernel loads) is left out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [x.item() for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tok_s = (n - 1) * B * S / steady_s
+    print(f"Mixtral training ({cfg.n_layers} layers at 8x7B width, "
+          f"{n_params} parameters, B={B} S={S}, attn {cfg.attn_impl}) on "
+          f"{card}: losses {[round(x, 4) for x in losses]}; steady "
+          f"{tok_s:.1f} tokens/s over {n - 1} steps ({steady_s:.3f} s, "
+          f"{1e3 * steady_s / (n - 1):.1f} ms a step); peak memory "
+          f"{peak:.3f} GiB; launches {launches}")
+    if len(losses) != n or not all(np.isfinite(losses)):
+        raise AssertionError(f"Mixtral training losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"Mixtral loss did not fall: {losses}")
+    if (launches["flash_bwd_fused"] != cfg.n_layers * n
+            or launches["flash_fwd"] < cfg.n_layers * n
+            or launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]):
+        raise AssertionError(f"Mixtral training launches {launches}")
+
+    wall, busy, top, flash_ms = device_profile(
+        lambda: step(state, batches[0]),
+        named=("flash_fwd_bf16", "bwd_kv_bf16"))
+    loss = mixtral.loss_fn(state.params, batches[1], cfg)
+    grads = torch.autograd.grad(loss, leaves(state.params))
+    adamw_ms = cuda_ms(lambda: opt.update(grads, state.opt_state,
+                                          state.params), reps=3)
+    del grads, loss
+    parts = {name: cfg.n_layers * ms for name, ms in moe_component_ms(
+        cfg, state.params, B * S).items()}
+    parts.update(flash=flash_ms, adamw=adamw_ms)
+    shares = ({k: v / busy for k, v in parts.items()} if busy else None)
+    print(f"one Mixtral training step under the profiler on {card}: wall "
+          f"{wall:.1f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.1f} ms'}; device "
+          f"ms a step by part {parts}; share of busy "
+          f"{'not measured' if shares is None else {k: round(v, 4) for k, v in shares.items()}}; "
+          f"top kernels {top}")
+    del state, batches, step
+    torch.cuda.empty_cache()
+
+    res = train.run(["--model", "mixtral", "--preset", "tiny", "--device",
+                     "cuda", "--steps", "10", "--seq", "129", "--batch", "16",
+                     "--data", "markov"])
+    cli = [v for _, v in res["losses"]]
+    print(f"Mixtral CLI (--preset tiny, dense attention) on {card}: losses "
+          f"{[round(x, 4) for x in cli]}, {res['tok_s']:.1f} tokens/s")
+    if not (all(np.isfinite(cli)) and cli[-1] < cli[0]):
+        raise AssertionError(f"Mixtral CLI losses {cli}")
+    return {"losses": losses, "tok_s": tok_s, "peak_mem_gib": peak,
+            "launches": launches, "n_params": n_params,
+            "profile": {"wall_ms": wall, "device_busy_ms": busy,
+                        "parts_ms": parts, "shares": shares, "top": top},
+            "cli_losses": cli}
+
+
+def mixtral_serving_phase(card: str) -> dict:
+    """Mixtral 8x7B's widths at MOE_SERVE_LAYERS layers (random weights
+    from a seed, bf16, flash prefill) on an ``Engine(params,
+    MixtralConfig)`` with SLOTS slots and max_len MAX_LEN: the serving
+    phase's HTTP drive (its launches exact: the forward kernel once a layer
+    an admission; the drop counter on ``/v1/stats`` and ``/metrics``) and
+    measurements; then SLOTS prompts of 64 tokens x MOE_NEW new tokens,
+    co-batched and one at a time (exactly equal: decode routes at full
+    capacity), and through an eager twin (``cuda_graphs=False``), whose
+    greedy tokens must equal the graphed ones: decode tokens/s and, under
+    the profiler, the idle share of each; then one round with int8
+    weights and an int8 KV cache: tokens/s, parameter bytes and the share
+    of greedy tokens equal to bf16's. Every prefill after the HTTP drive is
+    counted too, exactly: one a request and one an engine's warm-up."""
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.models.quant import param_bytes, quantize_params
+    from nanotpu_torch.serving.engine import Engine
+
+    cfg = mixtral_config(MOE_SERVE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, 64).tolist()
+               for _ in range(SLOTS)]
+    engines = []
+
+    def engine(tree, **kw):
+        eng = Engine(tree, cfg, slots=SLOTS, max_len=MAX_LEN, seed=0,
+                     device="cuda", **kw)
+        engines.append(eng)
+        t0 = time.perf_counter()
+        eng.wait_warm()
+        return eng, time.perf_counter() - t0
+
+    def profiled_round(eng):
+        wall, busy, top, _ = device_profile(
+            lambda: decode_round(eng, prompts, 64))
+        return {"wall_ms": wall, "device_busy_ms": busy,
+                "idle_share": None if busy is None else 1 - busy / wall,
+                "top": top}
+
+    try:
+        graphed, ready_s = engine(params)
+        out = drive_http(graphed, "Mixtral serving")
+        out.update(measure(graphed, out.pop("rng"), card))
+        reset_launches()
+        requests_before = graphed.requests_total
+        co, tok_s = decode_round(graphed, prompts, MOE_NEW)
+        solo = [graphed.generate(p, MOE_NEW) for p in prompts]
+        if co != solo:
+            raise AssertionError("Mixtral serving: co-batched greedy tokens "
+                                 "differ from one at a time")
+        out["graphed"] = {"ready_s": ready_s, "tok_s": tok_s,
+                          "profile": profiled_round(graphed)}
+        eager, ready_s = engine(params, cuda_graphs=False)
+        eager_outs, eager_tok_s = decode_round(eager, prompts, MOE_NEW)
+        if eager_outs != co:
+            raise AssertionError("Mixtral serving: graphed greedy tokens "
+                                 "differ from eager ones")
+        out["eager"] = {"ready_s": ready_s, "tok_s": eager_tok_s,
+                        "profile": profiled_round(eager)}
+        out["graphs"] = graph_record(graphed, "Mixtral serving")
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        eager.stop()
+
+        qparams = quantize_params(params)
+        int8, ready_s = engine(qparams, kv_int8=True)
+        int8_outs, int8_tok_s = decode_round(int8, prompts, MOE_NEW)
+        pairs = [(a, b) for x, y in zip(int8_outs, co) for a, b in zip(x, y)]
+        out["int8"] = {
+            "ready_s": ready_s, "tok_s": int8_tok_s,
+            "greedy_equal_share": sum(a == b for a, b in pairs) / len(pairs),
+            "param_bytes": {"bfloat16": param_bytes(params),
+                            "int8": param_bytes(qparams)},
+            "graphs": graph_record(int8, "Mixtral int8 serving")}
+        prefills = sum(e.requests_total + 1 for e in engines[1:]) + (
+            graphed.requests_total - requests_before)
+        launches = read_launches()
+        out["graph_launches"] = launches
+        if launches != {**dict.fromkeys(launches, 0),
+                        "flash_fwd": cfg.n_layers * prefills}:
+            raise AssertionError(f"Mixtral serving launches {launches} for "
+                                 f"{prefills} prefills")
+    finally:
+        for eng in engines:
+            eng.stop()
+    print(f"Mixtral serving ({cfg.n_layers} layers at 8x7B width, "
+          f"{param_bytes(params)} B of bf16 parameters) on {card}: TTFT by "
+          f"bucket {out['ttft_by_bucket_ms']} ms; decode at {SLOTS} busy "
+          f"slots graphed {out['graphed']['tok_s']:.1f} tok/s (ready in "
+          f"{out['graphed']['ready_s']:.1f} s), eager "
+          f"{out['eager']['tok_s']:.1f} (ready in "
+          f"{out['eager']['ready_s']:.1f} s); {SLOTS} x 64 tokens: graphed "
+          f"{out['graphed']['profile']}, eager {out['eager']['profile']}; "
+          f"peak memory {out['peak_mem_gib']:.3f} GiB; prefill drops "
+          f"{out['moe_prefill_dropped_total']}; co-batched equal to one at a "
+          f"time and graphed equal to eager; launches after the drive "
+          f"{out['graph_launches']} ({prefills} prefills)")
+    print(f"Mixtral int8 weights and KV cache on {card}: {out['int8']}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1509,6 +1906,7 @@ def main() -> None:
 
     rows = kernel_phase(card)
     bwd = backward_phase(card)
+    moe_kernels = mixtral_kernel_phase(card)
     serve = serving_phase(card)
     parity_phase()
     graphed = graphs_phase(card)
@@ -1520,6 +1918,8 @@ def main() -> None:
     trained = training_phase(card)
     two_pass = two_pass_phase()
     train_parity_phase()
+    moe_train = mixtral_training_phase(card)
+    moe_serve = mixtral_serving_phase(card)
 
     # each path's launches, counted from 0 just before it ran and read just
     # after; "launches" is their sum
@@ -1527,7 +1927,9 @@ def main() -> None:
                "graphs": graphed["launches"],
                "distill": spec["distill_launches"],
                "speculative": spec["launches"], "train": trained["launches"],
-               "two_pass": two_pass}
+               "two_pass": two_pass, "mixtral_train": moe_train["launches"],
+               "mixtral_serving": moe_serve["launches"],
+               "mixtral_rounds": moe_serve["graph_launches"]}
 
     def launches(name):
         counts = {path: n[name] for path, n in by_path.items()}
@@ -1549,6 +1951,10 @@ def main() -> None:
         "library_ms": at["library_ms"],
         # the training flagship's shape (B=8, 16/4 heads, with lse)
         **{f"train_{k}": v for k, v in rows["train"].items()},
+        # Mixtral's heads (32/8, D=128): the training shape (B=4, S=2048,
+        # with lse) and the serving buckets (B=1)
+        **{f"mixtral_train_{k}": v for k, v in moe_kernels["train"].items()},
+        "mixtral_serve": moe_kernels["serve"],
     }]
     for name, row in bwd.items():
         kernels.append({
@@ -1560,6 +1966,9 @@ def main() -> None:
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms")},
         })
+        if name == "flash_bwd_fused":  # Mixtral's training shape
+            kernels[-1].update({f"mixtral_{k}": v
+                                for k, v in moe_kernels["bwd"].items()})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,25 +18,47 @@ import torch
 from nanotpu_torch.models.quant import QArray
 from nanotpu_torch.tree import rebuild
 
+#: matrices that nanotpu keeps in f32 in a bf16 model: the MoE router
+#: (``nanotpu/models/mixtral.py`` draws it in the model's dtype and stores
+#: it in f32), whose argmax a rounded logit can flip
+KEEP_F32 = frozenset({"router"})
 
-def _leaf(arr, device, dtype):
+
+def _leaf(arr, device):
     arr = np.array(arr)  # a writable copy: jax hands out read-only views
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
     return t.to(device)
+
+
+def cast_params(tree, dtype: torch.dtype):
+    """``tree`` as nanotpu's presets of model dtype ``dtype`` hold it: every
+    floating matrix (2-D and up) cast, except those under a
+    :data:`KEEP_F32` key; the norm gains (1-D) and quantized leaves keep
+    theirs."""
+    if isinstance(tree, QArray):
+        return tree
+    if isinstance(tree, dict):
+        return {k: (v if k in KEEP_F32 else cast_params(v, dtype))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return rebuild(tree, [cast_params(v, dtype) for v in tree])
+    if tree.is_floating_point() and tree.dim() >= 2:
+        return tree.to(dtype)
+    return tree
 
 
 def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     """The same tree with every leaf a torch tensor on ``device``.
-    ``dtype`` casts the floating-point leaves; None keeps each leaf's."""
+    ``dtype`` casts it as :func:`cast_params` does; None keeps each leaf's."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
-    if getattr(tree, "_fields", None) == ("q", "s"):
-        return QArray(_leaf(tree.q, device, None), _leaf(tree.s, device, None))
-    if isinstance(tree, (list, tuple)):
-        return rebuild(tree, [params_from_numpy(v, device, dtype) for v in tree])
-    return _leaf(tree, device, dtype)
+        out = {k: params_from_numpy(v, device) for k, v in tree.items()}
+    elif getattr(tree, "_fields", None) == ("q", "s"):
+        out = QArray(_leaf(tree.q, device), _leaf(tree.s, device))
+    elif isinstance(tree, (list, tuple)):
+        out = rebuild(tree, [params_from_numpy(v, device) for v in tree])
+    else:
+        out = _leaf(tree, device)
+    return out if dtype is None else cast_params(out, dtype)

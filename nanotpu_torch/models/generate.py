@@ -10,7 +10,9 @@ Unlike the JAX original, the cache is updated in place (JAX returns a new
 array for each update): one cache lives on the device, not two. Its
 ``length`` is a host integer, so no step waits on the device to learn it.
 A prefill into an empty cache with ``attn_impl="flash"`` runs the flash
-kernel.
+kernel. A Mixtral layer (a ``moe`` entry) routes a decode step (S == 1) at
+full expert capacity, so co-batched rows stay independent, and a prefill at
+the capacity factor of the full forward.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from nanotpu_torch.models.llama import (
     rms_norm,
     rope_freqs,
 )
+from nanotpu_torch.models.mixtral import moe_block
 from nanotpu_torch.ops.attention import NEG_INF, flash_attention
 
 
@@ -73,14 +76,31 @@ def _attend_cached(q, k_cache, v_cache, valid_len: int):
     return out.reshape(B, S, H, hd)
 
 
+def ffn(layer, x, cfg, full_capacity: bool, drop_acc=None):
+    """The FFN half of a cached layer on x [B,S,D] (its norm included):
+    the SwiGLU MLP of a Llama layer, or the routed experts of a Mixtral
+    layer (``moe``), whose aux loss inference drops. ``full_capacity`` and
+    ``drop_acc`` go to :func:`~nanotpu_torch.models.mixtral.moe_block`."""
+    if "moe" in layer:
+        out, _aux = moe_block(
+            layer["moe"], rms_norm(x, layer["moe_norm"], cfg.norm_eps), cfg,
+            full_capacity=full_capacity, drop_acc=drop_acc,
+        )
+        return out
+    return mlp(layer["mlp"], rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+
+
 def _layer_with_cache(layer, x, cfg, cos, sin, k_cache, v_cache, start: int,
-                      full_prefill: bool = False):
+                      full_prefill: bool = False, drop_acc=None):
     """One decoder layer over new tokens x [B,S,D], writing this layer's
     k/v at [start, start+S) of the cache in place. Returns x.
 
     ``full_prefill`` marks the cache-was-empty case: attention is plain
     causal self-attention over the prompt, so ``attn_impl="flash"`` runs it
-    through the flash kernel instead of attending the whole cache."""
+    through the flash kernel instead of attending the whole cache. A decode
+    step (S == 1) of a Mixtral layer routes at full capacity; a prefill
+    keeps the capacity factor over this call's B*S tokens, as ``forward``
+    does, and appends its per-token drops to ``drop_acc``."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn = layer["attn"]
@@ -98,18 +118,19 @@ def _layer_with_cache(layer, x, cfg, cos, sin, k_cache, v_cache, start: int,
     else:
         out = _attend_cached(q, k_cache, v_cache, start + S)
     x = x + linear(out.reshape(B, S, H * hd), attn["wo"])
-    return x + mlp(layer["mlp"], rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+    return x + ffn(layer, x, cfg, full_capacity=(S == 1), drop_acc=drop_acc)
 
 
 def _run(params, tokens, cfg, cache: KVCache, full_prefill: bool = False,
-         return_all: bool = False, head: bool = True):
+         return_all: bool = False, head: bool = True, drop_acc=None):
     """Shared prefill/step body: tokens [B,S] appended at cache.length.
     ``return_all`` returns logits for every fed position [B,S,V] (the
     speculative verify needs them all), else last-token logits [B,V].
     ``head=False`` skips the final norm and lm_head and returns
     ``(None, cache)``: for callers that only prime the cache (a speculative
     draft's prefill), whose discarded projection can cost more than the
-    shallow draft itself."""
+    shallow draft itself. ``drop_acc`` collects a Mixtral prefill's
+    per-token drops, one [B*S] vector a layer."""
     S = tokens.shape[1]
     start = cache.length
     positions = start + torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -118,7 +139,7 @@ def _run(params, tokens, cfg, cache: KVCache, full_prefill: bool = False,
     for i, layer in enumerate(params["layers"]):
         x = _layer_with_cache(
             layer, x, cfg, cos, sin, cache.k[i], cache.v[i], start,
-            full_prefill=full_prefill,
+            full_prefill=full_prefill, drop_acc=drop_acc,
         )
     new_cache = cache._replace(length=start + S)
     if not head:

@@ -281,23 +281,28 @@ def _chunk_nll(lm_head: torch.Tensor, h: torch.Tensor,
                            targets.reshape(-1).long(), reduction="sum")
 
 
-def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Next-token cross entropy over tokens[:, :-1] -> tokens[:, 1:], in
+def next_token_nll(lm_head, x: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """Mean NLL of ``targets [B, S]`` under the logits ``x @ lm_head``, in
     sequence chunks of CE_CHUNK (each under a non-reentrant checkpoint)
     when the length divides, in one piece otherwise."""
-    B, S1 = tokens.shape
-    S = S1 - 1
-    x = hidden_states(params, tokens[:, :-1], cfg)
-    targets = tokens[:, 1:]
+    B, S = targets.shape
     if S <= CE_CHUNK or S % CE_CHUNK:
-        return _chunk_nll(params["lm_head"], x, targets) / (B * S)
+        return _chunk_nll(lm_head, x, targets) / (B * S)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, S, CE_CHUNK):
         total = total + checkpoint(
-            _chunk_nll, params["lm_head"], x[:, i:i + CE_CHUNK],
+            _chunk_nll, lm_head, x[:, i:i + CE_CHUNK],
             targets[:, i:i + CE_CHUNK], use_reentrant=False,
         )
     return total / (B * S)
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy over tokens[:, :-1] -> tokens[:, 1:]
+    (:func:`next_token_nll`)."""
+    x = hidden_states(params, tokens[:, :-1], cfg)
+    return next_token_nll(params["lm_head"], x, tokens[:, 1:])
 
 
 def param_count(params) -> int:

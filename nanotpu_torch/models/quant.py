@@ -90,7 +90,8 @@ _SKIP = {"router"}
 
 
 def quantize_params(params):
-    """Quantize every matmul weight of a Llama parameter tree."""
+    """Quantize every matmul weight of a Llama or Mixtral parameter
+    tree (the expert stacks with per-expert scales; the router stays)."""
 
     def walk(node):
         if isinstance(node, dict):

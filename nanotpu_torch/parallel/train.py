@@ -2,7 +2,9 @@
 ``nanotpu/parallel/train.py``.
 
 The step is eager PyTorch: ``loss_fn`` (the Llama chunked cross entropy by
-default), ``torch.autograd.grad`` over the parameter tree's leaves, then
+default; ``--model mixtral`` trains the MoE model on
+:func:`nanotpu_torch.models.mixtral.loss_fn`), ``torch.autograd.grad`` over
+the parameter tree's leaves, then
 :class:`AdamW`, which updates parameters and moments in place (nanotpu's
 jitted step donates its state; in place is the eager counterpart and holds
 one copy of each). The mesh of nanotpu's step (dp, fsdp, tp, ep, sp, pp)
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from nanotpu_torch import resolve_device
-from nanotpu_torch.models import llama
+from nanotpu_torch.models import llama, mixtral
 from nanotpu_torch.tree import leaves, map_tree
 
 log = logging.getLogger("nanotpu_torch.train")
@@ -97,10 +99,11 @@ def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
 
 
 def init_train_state(generator: torch.Generator, cfg, optimizer: AdamW,
-                     device=None) -> TrainState:
-    """Fresh Llama parameters from ``generator`` on ``device`` (``cuda``
-    unless named), ready for autograd, with zeroed moments."""
-    params = llama.init_params(cfg, generator, device=device)
+                     device=None, init_fn: Callable | None = None) -> TrainState:
+    """Fresh parameters from ``init_fn(cfg, generator, device=device)``
+    (Llama's ``init_params`` by default) on ``device`` (``cuda`` unless
+    named), ready for autograd, with zeroed moments."""
+    params = (init_fn or llama.init_params)(cfg, generator, device=device)
     for p in leaves(params):
         p.requires_grad_(True)
     return TrainState(params, optimizer.init(params), 0)
@@ -198,9 +201,15 @@ _PRESETS = {
         vocab_size=128_256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
         ffn_dim=14_336, max_seq_len=8192, dtype="bfloat16",
     ),
-    # nanotpu's Mixtral rows: the model is not ported yet
-    ("mixtral", "tiny"): None,
-    ("mixtral", "8x7b"): None,
+    ("mixtral", "tiny"): dict(
+        vocab_size=512, dim=128, n_layers=2, n_heads=8, n_kv_heads=4,
+        ffn_dim=256, n_experts=4, top_k=2, max_seq_len=256, dtype="float32",
+    ),
+    ("mixtral", "8x7b"): dict(
+        vocab_size=32_000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        ffn_dim=14_336, n_experts=8, top_k=2, max_seq_len=8192,
+        dtype="bfloat16",
+    ),
 }
 
 #: flags of nanotpu's trainer that the port refuses, with their idle values
@@ -304,16 +313,21 @@ def run(argv: list[str] | None = None) -> dict:
     key = (args.model, args.preset)
     if key not in _PRESETS:
         parser.error(f"no preset {key}; have {sorted(_PRESETS)}")
-    if _PRESETS[key] is None:
-        parser.error(f"{args.model} is not ported yet")
     device = resolve_device(args.device)
     preset = dict(_PRESETS[key])
     if args.attn:
         preset["attn_impl"] = args.attn
     if args.remat:
+        if args.model != "llama":
+            parser.error("--remat is wired for the dense llama stack only")
         preset["remat"] = True
         preset["remat_policy"] = args.remat_policy
-    cfg = llama.LlamaConfig(**preset)
+    if args.model == "llama":
+        cfg = llama.LlamaConfig(**preset)
+        loss, init = None, None  # build_train_step's and Llama's defaults
+    else:
+        cfg = mixtral.MixtralConfig(**preset)
+        loss, init = mixtral.loss_fn, mixtral.init_params
     batch = args.batch or 2
     seq = args.seq or min(cfg.max_seq_len, 512)
     log.info("device %s | %s/%s | batch=%d seq=%d attn=%s", device, *key,
@@ -323,14 +337,14 @@ def run(argv: list[str] | None = None) -> dict:
         mu_dtype=torch.bfloat16 if args.bf16_momentum else None)
     state = init_train_state(
         torch.Generator(device=device).manual_seed(args.seed), cfg, optimizer,
-        device=device)
+        device=device, init_fn=init)
     log.info("params %d", llama.param_count(state.params))
     if args.checkpoint_dir:
         restored = restore_checkpoint(args.checkpoint_dir, state)
         if restored is not None:
             state = restored
             log.info("resumed from step %d", state.step)
-    step_fn = build_train_step(cfg, optimizer)
+    step_fn = build_train_step(cfg, optimizer, loss_fn=loss)
 
     # every chunk of gen_chunk steps' batches is made in one go on the
     # device; file data uses a fixed chunk so that (seed, chunk index)

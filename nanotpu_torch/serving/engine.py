@@ -30,9 +30,15 @@ port of ``nanotpu/serving/engine.py``.
   chunk replays one a step: the counterpart of the JAX engine's compiled
   chunk. On the CPU the same bodies run eagerly.
 
+MoE (a ``MixtralConfig`` engine) routes every decode step, speculative
+draft and verify at **full expert capacity** (C = rows x positions x
+top_k), so each slot's routing is independent of its batch-mates. Prefill
+keeps Switch capacity over the padded bucket length, and counts the real
+tokens it drops (``moe_prefill_dropped_total``).
+
 The caches and the decode carry are allocated once and updated in place
 (the JAX engine donates its buffers to the same end), so a graph's
-addresses hold. MoE and meshes are not ported yet.
+addresses hold. Meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from nanotpu_torch.models.generate import (
     NEG_INF,
     _run,
     apply_top_k,
+    ffn,
     apply_top_p,
     sample_categorical,
     warp_logits,
@@ -64,7 +71,6 @@ from nanotpu_torch.models.llama import (
     apply_rope,
     embed_lookup,
     linear,
-    mlp,
     rms_norm,
     rope_freqs,
 )
@@ -210,7 +216,9 @@ def _rows_forward(params, cfg, cache, tokens, advance, head: bool = True):
     at that row's length overwrites them (the speculative rollback).
     Frozen rows (advance 0) still write, see the invariant on
     :func:`_write_rows`. ``head=False`` skips the final norm and lm_head and
-    returns (None, cache): the draft's cache-extension step."""
+    returns (None, cache): the draft's cache-extension step. A Mixtral
+    layer routes all B*S positions at full capacity: no token is dropped,
+    and no row's routing depends on another's."""
     B, S = tokens.shape
     positions = cache.lengths[:, None] + torch.arange(
         S, dtype=torch.int32, device=tokens.device
@@ -229,7 +237,7 @@ def _rows_forward(params, cfg, cache, tokens, advance, head: bool = True):
         k_view, v_view = _cache_update_and_views(cache, i, k, v, x.dtype)
         out = _attend_rows(q, k_view, v_view, cache.lengths)
         x = x + linear(out.reshape(B, S, H * hd), attn["wo"])
-        x = x + mlp(layer["mlp"], rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+        x = x + ffn(layer, x, cfg, full_capacity=True)
     new_cache = cache._replace(lengths=cache.lengths + advance.to(torch.int32))
     if not head:
         return None, new_cache
@@ -451,25 +459,39 @@ def prefill_cache_only(params, cfg, prompt_padded, max_len: int):
 
 def prefill_request(params, cfg, prompt_padded, true_len: int, max_len: int,
                     temp: float, generator, top_k: int = 0,
-                    top_p: float = 1.0):
+                    top_p: float = 1.0, count_drops: bool = False):
     """Prefill one request (B=1, padded prompt) and sample its first token.
 
     Returns (first_token 0-dim tensor, k rows, v rows) where rows are
     per-layer [1, max_len, KV, hd] ready for :func:`insert_request`. The
     pad region's k/v are garbage but sit at positions >= true_len, beyond
-    the row's frontier: never attended."""
+    the row's frontier: never attended.
+
+    ``count_drops`` (MoE models) appends a fourth value, a 0-dim int32
+    tensor on the device: the real tokens' choices that expert capacity
+    dropped, over every layer. Prefill routes at Switch capacity over the
+    padded bucket, and capacity fills in token order, so the trailing pads
+    lose their slots first: they are masked out of the count."""
     cache = KVCache.create(cfg, 1, max_len, device=prompt_padded.device)
+    drop_acc = [] if count_drops else None
     logits_all, cache = _run(
         params, prompt_padded, cfg, cache, full_prefill=True,
-        return_all=True,
-    )  # [1, S_pad, V]
+        return_all=True, drop_acc=drop_acc,
+    )  # [1, S_pad, V]; drop_acc holds one [S_pad] vector a MoE layer
     logits = logits_all[:, true_len - 1]  # [1, V]
     if temp > 0:
         first = sample_categorical(warp_logits(logits, temp, top_k, top_p),
                                    generator)
     else:
         first = torch.argmax(logits, dim=-1)
-    return first[0], cache.k, cache.v
+    if not count_drops:
+        return first[0], cache.k, cache.v
+    real = torch.arange(prompt_padded.shape[1],
+                        device=prompt_padded.device) < true_len
+    drops = torch.zeros((), dtype=torch.int32, device=prompt_padded.device)
+    if drop_acc:
+        drops = torch.where(real, sum(drop_acc), 0).sum().to(torch.int32)
+    return first[0], cache.k, cache.v, drops
 
 
 def _cache_planes(cache, ks, vs):
@@ -753,6 +775,11 @@ class Engine:
         self.tok_s_ewma: float | None = None
         self.ttft_samples: deque[float] = deque(maxlen=4096)
         self.latency_samples: deque[float] = deque(maxlen=4096)
+        #: MoE only: real tokens' expert choices that capacity dropped in
+        #: admission prefills (decode routes at full capacity and cannot
+        #: drop); see prefill_request
+        self.moe_prefill_dropped_total = 0
+        self._count_drops = hasattr(cfg, "n_experts")
 
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="serving-engine"
@@ -844,8 +871,7 @@ class Engine:
         }
 
     def stats(self) -> dict:
-        """The JAX engine's ``/v1/stats`` fields (the MoE counter is fixed
-        at 0: no MoE model is served here)."""
+        """The JAX engine's ``/v1/stats`` fields."""
         m = self.metrics()
         with self._cv:
             queued = len(self._queue)
@@ -867,7 +893,7 @@ class Engine:
             "chips": int(m["chips"]),
             "requests_total": self.requests_total,
             "tokens_total": self.tokens_total,
-            "moe_prefill_dropped_total": 0,
+            "moe_prefill_dropped_total": self.moe_prefill_dropped_total,
             "ttft_p50_ms": pct(ttft, 0.5) and round(pct(ttft, 0.5) * 1e3, 2),
             "ttft_p99_ms": pct(ttft, 0.99) and round(pct(ttft, 0.99) * 1e3, 2),
             "latency_p50_ms": pct(lat, 0.5) and round(pct(lat, 0.5) * 1e3, 2),
@@ -964,7 +990,7 @@ class Engine:
     def _admit_all(self) -> None:
         """Move queued requests into free slots. Prefills are enqueued per
         request, and their first tokens come back in ONE stacked fetch."""
-        admitted: list[tuple[Request, int, torch.Tensor]] = []
+        admitted: list[tuple[Request, int, torch.Tensor, torch.Tensor]] = []
         # speculative mode reserves K+1 positions for the last cycle's
         # write overshoot
         slack = self.draft_tokens + 1 if self.draft_params is not None else 0
@@ -989,10 +1015,14 @@ class Engine:
             padded = np.zeros((1, self._bucket(S)), np.int64)
             padded[0, :S] = req.prompt
             padded = torch.from_numpy(padded).to(self.device)
-            first, ks, vs = prefill_request(
+            out = prefill_request(
                 self.params, self.cfg, padded, S, self.max_len,
                 req.temperature, self._gen, top_k=self.top_k, top_p=self.top_p,
+                count_drops=self._count_drops,
             )
+            first, ks, vs = out[:3]
+            # MoE: the drop count rides the same fetch as the first tokens
+            drops = out[3] if self._count_drops else None
             insert_request(self._cache, ks, vs, slot, S)
             if self._d_cache is not None:
                 # prime the draft row only when the occupancy after this
@@ -1009,12 +1039,17 @@ class Engine:
                     self._draft_stale.discard(slot)
                 else:
                     self._draft_stale.add(slot)
-            admitted.append((req, slot, first))
+            admitted.append((req, slot, first, drops))
         if not admitted:
             return
-        firsts = torch.stack([f for _, _, f in admitted]).cpu().numpy()
+        fetched = [f for _, _, f, _ in admitted]
+        if self._count_drops:
+            fetched += [d.to(f.dtype) for (_, _, f, d) in admitted]
+        fetched = torch.stack(fetched).cpu().numpy()
+        firsts = fetched[:len(admitted)]
+        self.moe_prefill_dropped_total += int(fetched[len(admitted):].sum())
         now = time.perf_counter()
-        for (req, slot, _), tok in zip(admitted, firsts):
+        for (req, slot, _, _), tok in zip(admitted, firsts):
             tok = int(tok)
             req.first_token_at = now
             with self._cv:  # stats() sorts these concurrently

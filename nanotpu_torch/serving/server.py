@@ -70,9 +70,12 @@ class ServingAPI:
         self.moe_dropped = r.gauge(
             "nanotpu_serve_moe_prefill_dropped_tokens_total",
             "MoE tokens dropped by expert capacity during admission "
-            "prefills (always 0: no MoE model is served here)",
+            "prefills (monotone; decode routes at full capacity and "
+            "cannot drop)",
         )
-        self.moe_dropped.set_function(lambda: 0)
+        self.moe_dropped.set_function(
+            lambda: engine.moe_prefill_dropped_total
+        )
 
     def dispatch(self, method: str, path: str,
                  body: bytes) -> tuple[int, str, object]:

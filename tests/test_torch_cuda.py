@@ -13,8 +13,8 @@ in bf16, by element in f32) in no fixed order, while a dropped tile costs
 most of |want| in each row it touches; f32 1e-4 of the largest magnitude,
 at least 1.
 
-Serving extensions (int8 weights, int8 KV cache, speculative decoding): the
-same code on card tensors against CPU tensors, f32 with TF32 off (products
+Serving extensions (int8 weights, int8 KV cache, speculative decoding,
+Mixtral MoE): the same code on card tensors against CPU tensors, f32 with TF32 off (products
 within 1e-5 of their largest magnitude, bf16 within 2e-2; greedy tokens
 equal), and greedy speculative decoding equal to plain greedy in f32."""
 
@@ -523,10 +523,9 @@ def test_reprime_draft_after_plain_phase_on_card(card):
 # -- CUDA graphs of the decode step and the speculative cycle ---------------
 
 def _bf16(tree):
-    from nanotpu_torch.tree import map_tree
+    from nanotpu_torch.convert import cast_params
 
-    return map_tree(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t,
-                    tree)
+    return cast_params(tree, torch.bfloat16)
 
 
 def _engine_run(params, cfg, prompts, n, temperature=0.0, slots=4,
@@ -729,3 +728,97 @@ def test_engine_warm_up_fails_when_its_step_cannot_be_captured(card,
     finally:
         eng.stop()
     assert torch.ones(3, device=card).sum().item() == 3
+
+
+# -- Mixtral MoE ---------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,causal", [(1, True), (77, True), (300, True),
+                                      (300, False)])
+def test_kernels_at_mixtral_heads(card, dtype, S, causal):
+    """The forward (with lse) and the fused backward at Mixtral 8x7B's
+    heads, 32 query heads over 8 KV heads at head_dim 128, against their
+    plain versions."""
+    q, k, v, out, lse, dout = _bwd_inputs(card, dtype, 2, S, 32, 8, 128,
+                                          causal, S)
+    ref_out, ref_lse = attention_lse_ref(q.float(), k.float(), v.float(),
+                                         causal)
+    assert (out.float() - ref_out).abs().max().item() <= TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= TOL[dtype]
+    want = att.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                 lse, dout.float(), causal)
+    before = att.flash_bwd_fused.launches
+    got = att.flash_bwd_fused(q, k, v, dout, lse, att._dvec(out, dout), causal)
+    torch.cuda.synchronize()
+    assert att.flash_bwd_fused.launches == before + 1
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = _row_err(g, w) if dtype == torch.bfloat16 else (
+            (g - w).abs().max().item())
+        assert err <= TOL[dtype], (name, err)
+
+
+def _moe_models(card, dtype="float32"):
+    """A small Mixtral with flash prefill (head_dim 64), on the card."""
+    from nanotpu_torch.models import mixtral
+
+    cfg = dataclasses.replace(mixtral.MixtralConfig.tiny(), dim=256,
+                              ffn_dim=192, max_seq_len=128,
+                              attn_impl="flash", dtype=dtype)
+    params = mixtral.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device=card)
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavour", ["f32", "bf16", "int8", "spec"])
+def test_graphed_moe_engine_greedy_equals_eager(card, flavour):
+    """The MoE decode step (and with a dense draft, the speculative cycle
+    verifying at full expert capacity) captures as a CUDA graph, which
+    fails on any host sync, and replays: greedy tokens equal the eager
+    engine's, token for token."""
+    from nanotpu_torch.models.distill import init_draft
+
+    cfg, params = _moe_models(card, "bfloat16" if flavour == "bf16"
+                              else "float32")
+    kw = {}
+    if flavour == "int8":
+        params, kw = tq.quantize_params(params), dict(kv_int8=True)
+    elif flavour == "spec":
+        dcfg = LlamaConfig(vocab_size=cfg.vocab_size, dim=cfg.dim, n_layers=1,
+                           n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                           ffn_dim=cfg.ffn_dim, max_seq_len=cfg.max_seq_len,
+                           dtype=cfg.dtype)
+        draft = init_draft(torch.Generator(device=card).manual_seed(1),
+                           params, cfg, dcfg, truncate=False)
+        kw = dict(draft_params=draft, draft_cfg=dcfg, draft_tokens=3,
+                  spec_policy="always")
+    prompts = [[3, 1, 4, 1, 5], list(range(40)), [9], [7] * 60]
+    outs = {}
+    for graphs in (False, True):
+        outs[graphs], eng = _engine_run(params, cfg, prompts, 24,
+                                        cuda_graphs=graphs, **kw)
+        if graphs:
+            assert set(eng.graphs) == set(eng._variant_ks)
+            assert all(g.replays > 0 for g in eng.graphs.values())
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.cuda
+def test_moe_quantize_on_card_matches_cpu(card):
+    """quantize_params of a Mixtral tree on the card: the same int8 values
+    and per-expert scales as on the CPU, bit for bit; the router stays
+    f32."""
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.tree import map_tree
+
+    cfg = dataclasses.replace(mixtral.MixtralConfig.tiny(), dim=512,
+                              ffn_dim=1024, n_experts=8)
+    params = mixtral.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    on_cpu = tq.quantize_params(params)
+    on_card = tq.quantize_params(map_tree(lambda t: t.to(card), params))
+    assert on_card["layers"][0]["moe"]["router"].dtype == torch.float32
+    assert on_card["layers"][0]["moe"]["w_gate"].s.shape == (8, 1, 1024)
+    for a, b in zip(leaves(on_card), leaves(on_cpu)):
+        assert torch.equal(a.cpu(), b)

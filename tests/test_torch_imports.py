@@ -63,12 +63,12 @@ def test_importing_every_module_loads_no_jax_or_nanotpu():
     assert int(res.stdout.split("LOADED")[1].split()[0]) >= 13
     loaded = set(res.stdout.split("MODULES")[1].split())
     assert {f"nanotpu_torch.models.{m}" for m in
-            ("quant", "speculative", "distill")} <= loaded
+            ("quant", "speculative", "distill", "mixtral")} <= loaded
     assert {"nanotpu_torch.serving.graphs",
             "nanotpu_torch.serving.bench"} <= loaded
     assert {p.name for p in PORT_FILES} >= {"quant.py", "speculative.py",
                                             "distill.py", "graphs.py",
-                                            "bench.py"}
+                                            "bench.py", "mixtral.py"}
 
 
 def test_entry_points_raise_without_a_card_or_an_explicit_cpu():

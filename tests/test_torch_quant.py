@@ -13,8 +13,8 @@ test_quantized_generation_runs_and_tracks_full,
 test_quantized_decode_matches_quantized_forward and
 test_quantized_params_checkpoint_roundtrip (torch.save with
 weights_only=True in place of orbax) have ports below;
-test_mixtral_quantized_forward_and_decode has none until the MoE model is
-ported."""
+test_mixtral_quantized_forward_and_decode has its port in
+tests/test_torch_mixtral.py."""
 
 import dataclasses
 

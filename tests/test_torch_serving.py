@@ -9,13 +9,15 @@ outputs exactly equal to a solo generate).
 Third group: the int8 KV cache and per-row speculative decoding, mirroring
 tests/test_serving.py's TestKvInt8, TestSpeculativeServing,
 test_speculative_composes_with_kv_int8, TestAdaptiveSpeculation,
-TestMeasuredPolicy and TestSpecPolicyMisconfigWarning (the MoE classes wait
-for the MoE model): building blocks against the JAX engine's (int8 values
-equal, scales and logits within 1e-5 / 1e-4), the int8-KV engine's greedy
-tokens equal to the JAX int8-KV engine's, and the speculative engine's
-greedy tokens equal to the plain engine's. nanotpu's checks of which chunks
-were compiled become checks of the policy's arms (``_variant_ks``): the
-port compiles nothing."""
+TestMeasuredPolicy and TestSpecPolicyMisconfigWarning: building blocks
+against the JAX engine's (int8 values equal, scales and logits within
+1e-5 / 1e-4), the int8-KV engine's greedy tokens equal to the JAX int8-KV
+engine's, and the speculative engine's greedy tokens equal to the plain
+engine's. nanotpu's checks of which chunks were compiled become checks of
+the policy's arms (``_variant_ks``): the port compiles nothing.
+Fourth group: the decode units on fixed tensors (the CUDA graphs' bodies).
+Fifth group: Mixtral MoE serving, mirroring TestMoEServing,
+TestMoEDropCounter and TestSpeculativeMoEServing."""
 
 import dataclasses
 import json
@@ -33,11 +35,13 @@ import torch
 from nanotpu.models import distill as jd
 from nanotpu.models import generate as jg
 from nanotpu.models import llama as jl
+from nanotpu.models import mixtral as jm
 from nanotpu.serving import engine as je
 from nanotpu_torch.convert import params_from_numpy
 from nanotpu_torch.models import distill as td
 from nanotpu_torch.models import generate as tg
 from nanotpu_torch.models import llama as tl
+from nanotpu_torch.models import mixtral as tm
 from nanotpu_torch.models import quant as tq
 from nanotpu_torch.serving import engine as te
 from nanotpu_torch.serving import server as tsrv
@@ -1280,3 +1284,206 @@ def test_cuda_graphs_need_a_card(models):
         assert eng._units[0] == eng._plain_unit
     finally:
         eng.stop()
+
+
+# -- fifth group: Mixtral MoE serving ---------------------------------------
+# tests/test_serving.py's TestMoEServing, TestMoEDropCounter and
+# TestSpeculativeMoEServing on the port, nanotpu's MixtralConfig.tiny()
+# parameters carried over; the MoE building blocks against the JAX
+# engine's (logits atol 1e-4, drop counts exactly equal).
+
+MCFG_J, MCFG_T = jm.MixtralConfig.tiny(), tm.MixtralConfig.tiny()
+MOE_PROMPTS = [[5, 6, 7], [9, 8], [1, 2, 3, 4, 5, 6]]
+
+
+def moe_params(cfg_j=MCFG_J):
+    params = jax.jit(jm.init_params, static_argnums=1)(
+        jax.random.PRNGKey(0), cfg_j)
+    return params, params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params), "cpu")
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    return moe_params()
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_rows_forward_moe_matches_jax(moe_models, S):
+    """Full-capacity routing of every (row, position) at per-row
+    frontiers: the decode step (S=1) and a speculative verify (S=3)."""
+    params, tparams = moe_models
+    lengths, advance = [3, 7, 0, 12], [S, S, 0, 1]
+    jc, tc = slot_caches(lengths)
+    tokens = np.random.default_rng(S).integers(0, 256, (4, S))
+    jlog, jc2 = jax.jit(je._rows_forward, static_argnums=1)(
+        params, MCFG_J, jc, jnp.asarray(tokens),
+        jnp.asarray(advance, jnp.int32))
+    with torch.inference_mode():
+        tlog, tc2 = te._rows_forward(tparams, MCFG_T, tc,
+                                     torch.from_numpy(tokens),
+                                     torch.tensor(advance))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4)
+    assert_caches_close(tc2, jc2)
+
+
+@pytest.mark.parametrize("cf", [0.05, 8.0])
+def test_prefill_request_counts_drops_like_jax(cf):
+    """The first token and the drop count of one padded admission prefill
+    (10 real tokens in a 16-token bucket: the pads are left out)."""
+    cfg_j = dataclasses.replace(MCFG_J, capacity_factor=cf)
+    cfg_t = dataclasses.replace(MCFG_T, capacity_factor=cf)
+    params, tparams = moe_params(cfg_j)
+    padded = np.zeros((1, 16), np.int64)
+    padded[0, :10] = np.arange(1, 11)
+    prefill = jax.jit(je.prefill_request, static_argnums=(1, 3, 4),
+                      static_argnames=("count_drops",))
+    jfirst, _, _, jdrops = prefill(params, cfg_j, jnp.asarray(padded), 10, 32,
+                                   jnp.float32(0.0), jax.random.PRNGKey(0),
+                                   count_drops=True)
+    with torch.inference_mode():
+        first, ks, _, drops = te.prefill_request(
+            tparams, cfg_t, torch.from_numpy(padded), 10, 32, 0.0, None,
+            count_drops=True)
+    assert int(first) == int(jfirst)
+    assert drops.dtype == torch.int32 and int(drops) == int(jdrops)
+    assert (int(drops) > 0) == (cf == 0.05)
+    assert len(ks) == cfg_t.n_layers
+
+
+class TestMoEServing:
+    def test_mixtral_rows_independent_of_batch_mates(self, moe_models):
+        """Decode routes at full capacity (C = SLOTS * top_k), so each
+        request's tokens are the same alone and co-batched, exactly, at the
+        default capacity factor."""
+        _, tparams = moe_models
+
+        def run(co_batched: bool) -> list[list[int]]:
+            eng = te.Engine(tparams, MCFG_T, slots=3, max_len=64,
+                            buckets=(16,), device="cpu")
+            try:
+                if co_batched:
+                    reqs = [eng.submit(p, 8) for p in MOE_PROMPTS]
+                    for r in reqs:
+                        assert r.wait(60) and r.error is None
+                    return [r.out for r in reqs]
+                return [eng.generate(p, 8) for p in MOE_PROMPTS]
+            finally:
+                eng.stop()
+
+        assert run(co_batched=True) == run(co_batched=False)
+
+    def test_mixtral_engine_consistent_with_model(self, moe_models):
+        """tests/test_serving.py's criterion: every emitted token is the
+        teacher-forced argmax of nanotpu's drop-free forward (capacity
+        factor 64) or within a logit gap of 2.0 of it. The engine's
+        prefill routes at capacity over the padded bucket and its decode at
+        full capacity, so a close call may go either way; a wrong rope
+        position or a corrupt cache lands far from any argmax."""
+        params, tparams = moe_models
+        teacher_cfg = dataclasses.replace(MCFG_J, capacity_factor=64.0)
+        eng = te.Engine(tparams, MCFG_T, slots=3, max_len=64, buckets=(16,),
+                        device="cpu")
+        try:
+            reqs = [eng.submit(p, 8) for p in MOE_PROMPTS]
+            for r in reqs:
+                assert r.wait(60) and r.error is None
+        finally:
+            eng.stop()
+        forward = jax.jit(jm.forward, static_argnums=2)
+        for p, r in zip(MOE_PROMPTS, reqs):
+            seq = p + r.out
+            logits, _ = forward(params, jnp.asarray([seq[:-1]], jnp.int32),
+                                teacher_cfg)
+            rows = np.asarray(logits[0])
+            for i in range(len(p) - 1, len(seq) - 1):
+                top, tok = int(rows[i].argmax()), seq[i + 1]
+                gap = float(rows[i][top] - rows[i][tok])
+                assert gap < 2.0, (p, i, tok, top, gap)
+
+
+class TestMoEDropCounter:
+    """Prefill capacity drops are counted over real tokens, reported by
+    ``stats()`` and on ``/metrics``."""
+
+    def _engine(self, capacity_factor):
+        cfg_j = dataclasses.replace(MCFG_J, capacity_factor=capacity_factor)
+        _, tparams = moe_params(cfg_j)
+        cfg_t = dataclasses.replace(MCFG_T, capacity_factor=capacity_factor)
+        return te.Engine(tparams, cfg_t, slots=2, max_len=64, buckets=(16,),
+                         device="cpu")
+
+    def test_tight_capacity_counts_drops_and_serves(self):
+        # capacity factor ~0: one slot an expert over the 16-token bucket,
+        # so prefill drops; decode (full capacity) still completes
+        eng = self._engine(0.05)
+        try:
+            req = eng.submit([1, 2, 3, 4, 5, 6, 7, 8, 9, 10], 6)
+            assert req.wait(60) and req.error is None
+            assert len(req.out) == 6
+            assert eng.moe_prefill_dropped_total > 0
+            assert (eng.stats()["moe_prefill_dropped_total"]
+                    == eng.moe_prefill_dropped_total)
+            text = ServingAPI(eng).registry.render()
+            line = [ln for ln in text.splitlines() if ln.startswith(
+                "nanotpu_serve_moe_prefill_dropped_tokens_total ")]
+            assert line and float(line[0].split()[1]) == \
+                eng.moe_prefill_dropped_total, text
+        finally:
+            eng.stop()
+
+    def test_loose_capacity_drops_zero(self):
+        eng = self._engine(8.0)
+        try:
+            req = eng.submit([1, 2, 3], 6)
+            assert req.wait(60) and req.error is None
+            assert eng.moe_prefill_dropped_total == 0
+            assert eng.stats()["moe_prefill_dropped_total"] == 0
+        finally:
+            eng.stop()
+
+    def test_dense_engine_counts_nothing(self, models):
+        _, tparams = models
+        eng = te.Engine(tparams, CFG_T, slots=1, max_len=32, buckets=(16,),
+                        device="cpu")
+        try:
+            assert eng._count_drops is False
+            assert eng.generate([1, 2, 3], 2)
+            assert eng.stats()["moe_prefill_dropped_total"] == 0
+        finally:
+            eng.stop()
+
+
+class TestSpeculativeMoEServing:
+    def test_moe_target_dense_draft_greedy_exact(self, moe_models):
+        """A dense draft tied to the Mixtral target's embed and head
+        (``truncate=False``) proposes, the MoE target verifies at full
+        expert capacity: greedy rows equal the plain engine's."""
+        _, tparams = moe_models
+        dcfg = tl.LlamaConfig(
+            vocab_size=MCFG_T.vocab_size, dim=MCFG_T.dim, n_layers=1,
+            n_heads=MCFG_T.n_heads, n_kv_heads=MCFG_T.n_kv_heads,
+            ffn_dim=MCFG_T.ffn_dim, max_seq_len=MCFG_T.max_seq_len,
+            dtype=MCFG_T.dtype,
+        )
+        draft = td.init_draft(torch.Generator().manual_seed(1), tparams,
+                              MCFG_T, dcfg, truncate=False)
+        assert draft["lm_head"] is tparams["lm_head"]
+
+        def run(with_draft):
+            kw = dict(slots=3, max_len=64, buckets=(16,), device="cpu")
+            if with_draft:
+                kw.update(draft_params=draft, draft_cfg=dcfg,
+                          draft_tokens=3, spec_policy="always")
+            eng = te.Engine(tparams, MCFG_T, **kw)
+            try:
+                reqs = [eng.submit(p, 8) for p in MOE_PROMPTS]
+                for r in reqs:
+                    assert r.wait(120) and r.error is None, r.error
+                if with_draft:
+                    assert eng.spec_cycles_total > 0
+                return [r.out for r in reqs]
+            finally:
+                eng.stop()
+
+        assert run(True) == run(False)
