@@ -76,9 +76,28 @@ them:
 10. two-pass phase: one such step with ``FUSED_BWD_MAX_S = 0`` (what
     ``NANOTPU_FLASH_FUSED_BWD_MAX_S=0`` sets at import), so the dq and dk/dv
     kernels run on the path, 8 launches each;
+10a. fused training phase: the same CLI entry at ``--fuse-steps 1`` and
+    ``--fuse-steps 8`` in turns (1, 8, 8, 1), 24 steps each on the same
+    batches: steady tokens/s, peak memory, capture time; every step after
+    the two eager warm-up steps replays one captured CUDA graph of the
+    whole step (flash forward, fused backward, clipped AdamW with its
+    count on the card), launches exact; losses of the graphed runs beside
+    the eager ones; one replayed step against one eager step from the
+    same state; one call of 8 steps graphed and eager under the profiler
+    (wall, device busy, idle share);
+10b. one graphed step with ``FUSED_BWD_MAX_S = 0``: the dq and dk/dv
+    kernels launched from the graph, launches exact;
+10c. ``--profile-dir``: a trace of the steady-state call that names the
+    fused backward kernel;
 11. training parity phase: one f32 train step of the flagship width from
     the same parameters through ``attn_impl="flash"`` and ``"dense"``: close
     loss, gradients and updated parameters;
+11a. trained-target phase: the training flagship trained 480 steps on
+    the Markov corpus at ``--fuse-steps 8`` (its loss must fall; beside the
+    Markov floor), ``python -m nanotpu_torch.models.distill --target-ckpt
+    ... --prompt-data markov`` against it (acceptance, tokens/s), then the
+    plain engine and the "always" policy serving it with that draft at 1,
+    2 and 8 rows (decode tokens/s, tokens a row-cycle);
 12. Mixtral kernel phase (run after phase 4): the forward and the fused
     backward at Mixtral 8x7B's heads (32/8, head_dim 128, bf16) against
     their plain versions and timed: the forward at the serving buckets
@@ -91,6 +110,10 @@ them:
     steady tokens/s and one step under the profiler, with the shares of
     routing, dispatch and combine, experts, flash kernels and AdamW; then
     the trainer's CLI with ``--model mixtral --preset tiny``;
+13a. Mixtral fused training: the same model, weights and batches at
+    ``--fuse-steps 5`` (``build_train_step(n_fused=5)``), two calls: losses
+    below the first step's, one replayed step against one eager step from the same state,
+    launches exact, peak memory, tokens/s and the idle share of one call;
 14. Mixtral serving phase: the same widths cut to 4 layers on an
     ``Engine(params, MixtralConfig)`` (8 slots, max_len 2048) through the
     serving phase's HTTP drive (the MoE drop counter on ``/v1/stats`` and
@@ -101,10 +124,15 @@ them:
 
 The last two lines are the kernel table and the device record, as JSON.
 Each path (serving, int8 serving, graphs, distill, speculative, training,
-two-pass, and Mixtral's training, serving drive and serving rounds) counts
-its kernel launches from 0 and reads them just after it ran; the table gives each path's count and their sum. A decode graph
-captures no flash launch, so each serving path's count stays exact: the
-forward kernel once a layer for each prefill.
+two-pass, fused training, graphed two-pass, and Mixtral's training, fused
+training, serving drive and serving rounds) counts its kernel launches
+from 0 and reads them just after it ran; the table gives each path's count
+and their sum. A decode graph captures no flash launch, so each serving
+path's count stays exact: the forward kernel once a layer for each
+prefill. A training graph captures a step's forward and backward
+launches: the wrappers count on the host, so the graphed step takes
+capture's counts back and adds one step's at each replay
+(``GraphedTrainStep``), and the counts stay exact.
 Every phase that fails raises; nothing is caught.
 
 Run:  python3 chip_smoke.py     (one CUDA card and nvcc; builds on first use)
@@ -1471,6 +1499,231 @@ def two_pass_phase() -> dict:
     return launches
 
 
+#: the fused training drive: steps a call, steps a run, runs in turns
+FUSE_STEPS, FUSED_RUN_STEPS, FUSED_ORDER = 8, 24, (1, 8, 8, 1)
+
+
+def check_graphed(step_fn, steps: int, label: str) -> dict:
+    """A fused step function's graph record (capture seconds, eager warm-up
+    steps, replays); raises unless ``steps`` steps ran as the warm-up and
+    replays of one captured graph."""
+    g = step_fn.graphed
+    rec = {"capture_s": g.capture_s, "warmup_steps": g.warmup_steps,
+           "replays": g.replays}
+    if g.graph is None or g.warmup_steps + g.replays != steps or (
+            g.warmup_steps != g.WARMUP_STEPS):
+        raise AssertionError(f"{label}: steps did not replay a captured "
+                             f"graph: {rec}")
+    return rec
+
+
+def check_train_launches(launches: dict, n_layers: int, steps: int,
+                         two_pass: bool, label: str) -> None:
+    """Exactly one forward and one backward (fused, or dq and dk/dv) a
+    layer a step."""
+    n = n_layers * steps
+    want = ({"flash_fwd": n, "flash_bwd_fused": 0, "flash_bwd_dq": n,
+             "flash_bwd_dkv": n} if two_pass else
+            {"flash_fwd": n, "flash_bwd_fused": n, "flash_bwd_dq": 0,
+             "flash_bwd_dkv": 0})
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+
+
+def idle_profile(fn) -> dict:
+    wall, busy, top, fused_ms = device_profile(fn, named=("bwd_kv_bf16",))
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / wall,
+            "fused_bwd_ms": fused_ms, "top": top}
+
+
+#: steps of the one-step comparison of a replay with an eager step
+PARITY_STEPS = 3
+
+
+def one_step_parity(step_fn, state, batches) -> dict:
+    """A replay of ``step_fn``'s captured step against an eager run of the
+    same step body from the same state on the same batch, for each batch:
+    the state is copied, the graph replays one step, the copy and the
+    replayed state trade places, and the body runs eagerly on the state's
+    tensors (one copy of the state at a time, and one leaf). The largest
+    loss and state difference (each held to TOLERANCE in bf16: the orders
+    of the fused backward's dq sums and of cuBLAS's products are the only
+    differences) and whether every loss and state tensor is bit-equal."""
+    from nanotpu_torch.tree import leaves
+
+    g = step_fn.graphed
+    tensors = leaves(state.params) + leaves(state.opt_state)
+    loss_diff = state_diff = 0.0
+    bit_equal = True
+    for tokens in batches:
+        other = [t.detach().clone() for t in tensors]
+        g.step(tokens)
+        replayed_loss = g.loss.clone()
+        with torch.no_grad():
+            for t, o in zip(tensors, other):
+                replayed = t.clone()
+                t.copy_(o)
+                o.copy_(replayed)
+                del replayed
+        eager_loss = step_fn.body(state.params, state.opt_state, tokens)
+        loss_diff = max(loss_diff, (eager_loss - replayed_loss).abs().item())
+        state_diff = max(state_diff, max(
+            (t.float() - o.float()).abs().max().item()
+            for t, o in zip(tensors, other)))
+        bit_equal = (bit_equal and torch.equal(eager_loss, replayed_loss)
+                     and all(torch.equal(t, o) for t, o in zip(tensors, other)))
+        del other
+    out = {"steps": len(batches), "loss_max_diff": loss_diff,
+           "state_max_diff": state_diff, "bit_equal": bit_equal}
+    print(f"one replayed step against one eager step from the same state: "
+          f"{out}")
+    if not (loss_diff <= TOLERANCE[torch.bfloat16]
+            and state_diff <= TOLERANCE[torch.bfloat16]):
+        raise AssertionError(f"a replayed step differs from an eager one: "
+                             f"{out}")
+    return out
+
+
+def fused_training_phase(card: str) -> dict:
+    """The trainer's CLI entry on the training flagship, FUSED_RUN_STEPS
+    steps a run, at ``--fuse-steps 1`` and ``--fuse-steps FUSE_STEPS`` in
+    turns (FUSED_ORDER) on the same batches from the same weights: each
+    run's steady tokens/s and peak memory, each fused run's capture time,
+    warm-up steps and replays (all its steps after the warm-up replay one
+    captured graph) and its launches, exact; the first fused run's losses
+    at the end of each call against the first eager run's at those steps
+    (the first call's to TOLERANCE in bf16), and whether the losses and
+    final parameters are bit-equal. Then on a fresh flagship state, one
+    call of FUSE_STEPS steps graphed, ``one_step_parity``, and one such
+    call graphed and FUSE_STEPS eager steps under the profiler (wall,
+    device busy, idle share). The fused runs are the path "fused_train",
+    each counted from 0 just before it ran."""
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models.llama import LlamaConfig
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.tree import leaves
+
+    runs, launches, finals = [], None, {}
+    for fuse in FUSED_ORDER:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = train.run(TRAIN_ARGV + ["--steps", str(FUSED_RUN_STEPS),
+                                      "--fuse-steps", str(fuse)])
+        run = {"fuse_steps": fuse, "tok_s": res["tok_s"],
+               "steady_s": res["steady_s"],
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "losses": dict(res["losses"])}
+        n_layers = res["cfg"].n_layers
+        if fuse > 1:
+            counted = read_launches()
+            check_train_launches(counted, n_layers, FUSED_RUN_STEPS, False,
+                                 "fused training")
+            launches = counted if launches is None else {
+                k: launches[k] + counted[k] for k in counted}
+            run["graph"] = check_graphed(res["step_fn"], FUSED_RUN_STEPS,
+                                         "fused training")
+        if fuse not in finals:
+            finals[fuse] = [t.detach().clone()
+                            for t in leaves(res["state"].params)]
+        if not all(np.isfinite(list(run["losses"].values()))):
+            raise AssertionError(f"fused training losses {run['losses']}")
+        runs.append(run)
+        print(f"training flagship, --fuse-steps {fuse}, {FUSED_RUN_STEPS} "
+              f"steps on {card}: {run}")
+        del res
+    # bf16 training from a random init amplifies the fused backward's
+    # unordered dq sums: two eager runs part by up to ~0.1 nats within 24
+    # steps. So only the first call's loss is held to TOLERANCE here; later
+    # calls are reported beside the two eager runs' spread, and
+    # one_step_parity below holds each replay to an eager step.
+    (e1, g1, g2, e2) = (r["losses"] for r in runs)
+    diffs = {s: abs(g1[s] - e1[s]) for s in g1}
+    spread = {s: abs(e1[s] - e2[s]) for s in g1}
+    param_diff = max((a.float() - b.float()).abs().max().item()
+                     for a, b in zip(finals[1], finals[FUSE_STEPS]))
+    bit_equal = all(g1[s] == e1[s] for s in g1) and all(
+        torch.equal(a, b) for a, b in zip(finals[1], finals[FUSE_STEPS]))
+    del finals
+    print(f"graphed against eager training: loss differences {diffs} (tol "
+          f"{TOLERANCE[torch.bfloat16]} at step {FUSE_STEPS}); the two eager "
+          f"runs' {spread}; final parameters max diff {param_diff:.3g}; "
+          f"bit-equal {bit_equal}")
+    if not diffs[FUSE_STEPS] <= TOLERANCE[torch.bfloat16]:
+        raise AssertionError(f"graphed losses leave eager ones: {diffs}")
+
+    # one call of FUSE_STEPS steps, graphed and eager, under the profiler
+    cfg = LlamaConfig(**train._PRESETS[("llama", "flagship")],
+                      attn_impl="flash")
+    table = markov_table(cfg.vocab_size, device="cuda")
+    block = markov_batch(torch.Generator(device="cuda").manual_seed(9), table,
+                         (FUSE_STEPS, TRAIN_B, TRAIN_S + 1))
+    profiles = {}
+    for fuse in (FUSE_STEPS, 1):
+        opt = train.make_optimizer()
+        state = train.init_train_state(
+            torch.Generator(device="cuda").manual_seed(0), cfg, opt,
+            device="cuda")
+        step = train.build_train_step(cfg, opt, n_fused=fuse)
+
+        def call():
+            nonlocal state
+            if fuse > 1:
+                state, loss = step(state, block)
+            else:
+                for row in block:
+                    state, loss = step(state, row)
+            return loss
+
+        call()  # warm-up, capture and first replays
+        torch.cuda.synchronize()
+        if fuse > 1:
+            parity = one_step_parity(step, state, block[:PARITY_STEPS])
+        profiles["graphed" if fuse > 1 else "eager"] = idle_profile(call)
+        del state, step
+    print(f"one call of {FUSE_STEPS} flagship steps under the profiler on "
+          f"{card}: {profiles}")
+    return {"runs": runs, "launches": launches, "loss_diffs": diffs,
+            "loss_spread": spread, "param_max_diff": param_diff,
+            "bit_equal": bit_equal, "one_step_parity": parity,
+            "profiles": profiles}
+
+
+#: --fuse-steps 3: two eager warm-up steps, then one replay
+GRAPHED_TWO_PASS_STEPS = 3
+
+
+def fused_two_pass_phase() -> dict:
+    """One graphed flagship step with the fused backward switched off
+    (``FUSED_BWD_MAX_S = 0``): ``--steps 3 --fuse-steps 3`` runs the two
+    eager warm-up steps, captures, and replays once, the dq and dk/dv
+    kernels inside the graph; launches exact over the three steps."""
+    from nanotpu_torch.ops import attention as att
+    from nanotpu_torch.parallel import train
+
+    steps = GRAPHED_TWO_PASS_STEPS
+    saved = att.FUSED_BWD_MAX_S
+    att.FUSED_BWD_MAX_S = 0
+    try:
+        reset_launches()
+        res = train.run(TRAIN_ARGV + ["--steps", str(steps), "--fuse-steps",
+                                      str(steps)])
+        launches = read_launches()
+    finally:
+        att.FUSED_BWD_MAX_S = saved
+    graph = check_graphed(res["step_fn"], steps, "graphed two-pass step")
+    check_train_launches(launches, res["cfg"].n_layers, steps, True,
+                         "graphed two-pass step")
+    loss = res["losses"][-1][1]
+    print(f"graphed two-pass step: loss {loss:.4f}, {graph}, launches "
+          f"{launches}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"graphed two-pass step: loss {loss}")
+    return launches
+
+
 def train_parity_phase() -> None:
     """One f32 train step at the flagship width (8 layers, 16/4 heads,
     B=2, S=512: the chunked loss) from the same parameters, through the f32
@@ -1774,6 +2027,247 @@ def mixtral_training_phase(card: str) -> dict:
             "cli_losses": cli}
 
 
+#: the trained target: flagship steps on the Markov corpus (a whole number
+#: of fused calls, about 45 s at ~188k tokens/s), then the distill CLI. Its
+#: speculative_generate advances a batch by its rows' shortest accepted
+#: prefix, so it evaluates one row: its acceptance is a row's
+TARGET_STEPS = 480
+TARGET_DISTILL_ARGV = ["--steps", "160", "--batch", "16", "--seq", "128",
+                       "--full-ffn", "--eval-ks", str(SPEC_K),
+                       "--eval-new-tokens", "128", "--eval-batch", "1",
+                       "--eval-pairs", "2", "--prompt-data", "markov"]
+
+
+def draft_agreement(params, cfg, draft, dcfg, tokens) -> dict:
+    """How a draft's next-token distributions q meet the target's p on
+    ``tokens``, both at SPEC_T: the share of positions where their argmax
+    agree (what greedy speculation accepts), the mean of sum_x min(p, q)
+    (the chance that a sampled draft token is accepted) and the mean
+    entropies in nats."""
+    from nanotpu_torch.models.llama import forward
+
+    with torch.no_grad():
+        logp = torch.log_softmax(forward(params, tokens, cfg) / SPEC_T, -1)
+        logq = torch.log_softmax(forward(draft, tokens, dcfg) / SPEC_T, -1)
+    p, q = logp.exp(), logq.exp()
+    return {"argmax_agree": (logp.argmax(-1) == logq.argmax(-1)).float()
+            .mean().item(),
+            "sampled_accept": torch.minimum(p, q).sum(-1).mean().item(),
+            "target_entropy": -(p * logp).sum(-1).mean().item(),
+            "draft_entropy": -(q * logq).sum(-1).mean().item()}
+
+
+def trained_target_phase(card: str) -> dict:
+    """Speculation's worth on a trained target. The training flagship
+    trains TARGET_STEPS steps on the Markov corpus at ``--fuse-steps
+    FUSE_STEPS`` and checkpoints (its loss must fall; the Markov floor is
+    ``ideal_ce()``); ``python -m nanotpu_torch.models.distill --target-ckpt
+    ... --prompt-data markov`` distills a 2-layer draft of it and evaluates
+    ``speculative_generate`` (its JSON line: acceptance, tokens/s); then
+    the plain engine and the "always" policy (K = SPEC_K, graphed) serve
+    the trained target with that draft at SPEC_ROWS rows of 64-token
+    Markov prompts: decode tokens/s and tokens a row-cycle. There is no
+    bound on acceptance: it is a measurement."""
+    import tempfile
+
+    from nanotpu_torch.data.synthetic import ideal_ce, markov_batch, \
+        markov_table
+    from nanotpu_torch.models import distill
+    from nanotpu_torch.models.llama import LlamaConfig
+    from nanotpu_torch.models.quant import load_params
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.serving.engine import Engine
+    from nanotpu_torch.tree import leaves
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, draft_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "draft")
+        t0 = time.perf_counter()
+        res = train.run(TRAIN_ARGV + [
+            "--steps", str(TARGET_STEPS), "--fuse-steps", str(FUSE_STEPS),
+            "--checkpoint-dir", ckpt, "--save-every", str(10 * TARGET_STEPS)])
+        train_s = time.perf_counter() - t0
+        losses = res["losses"]
+        trained = {"steps": TARGET_STEPS, "seconds": train_s,
+                   "tok_s": res["tok_s"], "first_loss": losses[0],
+                   "last_loss": losses[-1], "markov_floor": ideal_ce()}
+        del res
+        torch.cuda.empty_cache()
+        print(f"trained the training flagship {TARGET_STEPS} steps on the "
+              f"Markov corpus (--fuse-steps {FUSE_STEPS}) on {card}: {trained}")
+        if not losses[-1][1] < losses[0][1]:
+            raise AssertionError(f"the target's loss did not fall: {losses}")
+
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "nanotpu_torch.models.distill",
+             "--target-ckpt", ckpt, "--save-draft", draft_dir]
+            + TARGET_DISTILL_ARGV, cwd=here, capture_output=True, text=True,
+            timeout=600)
+        if cli.returncode != 0:
+            raise AssertionError(f"distill CLI failed: {cli.stderr[-2000:]}")
+        distilled = json.loads(cli.stdout.strip().splitlines()[-1])
+        distilled["seconds"] = time.perf_counter() - t0
+        # the CLI logs its training soft-CE every 25 steps
+        distilled["soft_ce"] = [float(line.split()[-1]) for line in
+                                cli.stderr.splitlines()
+                                if line.startswith("distill step ")]
+        print(f"distill CLI against the trained target on {card}: "
+              f"{json.dumps(distilled)}")
+
+        cfg = LlamaConfig(**train._PRESETS[("llama", "flagship")],
+                          attn_impl="flash")
+        opt = train.make_optimizer()
+        state = train.restore_checkpoint(ckpt, train.init_train_state(
+            torch.Generator(device="cuda").manual_seed(0), cfg, opt,
+            device="cuda"))
+        draft = load_params(os.path.join(draft_dir, "draft.pt"), "cuda")
+    params = state.params
+    for p in leaves(params):
+        p.requires_grad_(False)
+    del state
+    torch.cuda.empty_cache()
+    dcfg = distill.draft_config(distill.target_config(), ffn_dim=cfg.ffn_dim)
+    table = markov_table(cfg.vocab_size, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    agreement = draft_agreement(params, cfg, draft, dcfg,
+                                markov_batch(gen, table, (8, 128)))
+    print(f"the distilled draft against the trained target on 8 x 128 "
+          f"Markov tokens: {agreement}")
+    prompts = {n: markov_batch(gen, table, (n, 64)).tolist()
+               for n in SPEC_ROWS}
+    rows = {}
+    for policy in ("plain", "always"):
+        kw = {} if policy == "plain" else dict(
+            draft_params=draft, draft_cfg=dcfg, draft_tokens=SPEC_K,
+            spec_policy="always")
+        eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                     device="cuda", **kw)
+        try:
+            eng.wait_warm()
+            rows[policy] = {}
+            for n in SPEC_ROWS:
+                decode_round(eng, prompts[n], SPEC_NEW)  # untimed
+                cycles = eng.spec_cycles_total
+                emitted = eng.spec_cycle_tokens_total
+                _, tok_s = decode_round(eng, prompts[n], SPEC_NEW)
+                cycles = eng.spec_cycles_total - cycles
+                rows[policy][n] = {"tok_s": tok_s, "tokens_per_cycle": (
+                    (eng.spec_cycle_tokens_total - emitted) / cycles
+                    if cycles else None)}
+            if policy == "always":
+                graph_record(eng, "trained-target speculative engine")
+                rows[policy]["spec_tokens_per_cycle"] = eng.stats()[
+                    "spec_tokens_per_cycle"]
+        finally:
+            eng.stop()
+    print(f"the trained target served on {card}, K={SPEC_K}, {SPEC_NEW} new "
+          f"tokens a row: {rows}")
+    return {"trained": trained, "distill_cli": distilled,
+            "agreement": agreement, "engines": rows}
+
+
+#: the fused Mixtral drive: steps a call (two calls)
+MOE_FUSE_STEPS = 5
+
+
+def mixtral_fused_training_phase(card: str, eager_losses: list) -> dict:
+    """The Mixtral training phase's model, weights and batches (8x7B
+    widths at MOE_TRAIN_LAYERS layers, B=4, S=2048, 10 steps) through
+    ``build_train_step(n_fused=MOE_FUSE_STEPS)``: two calls, the steps
+    after the warm-up replaying one captured graph; each call's loss beside
+    the eager phase's at its step (below its first step's), one replayed
+    step against an eager one from the same state
+    (``one_step_parity``); launches
+    exact, peak memory, the second call's tokens/s and one more call under
+    the profiler (wall, device busy, idle share)."""
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.parallel import train
+
+    cfg = mixtral_config(MOE_TRAIN_LAYERS)
+    B, S, n, fuse = MOE_TRAIN_B, TRAIN_S, TRAIN_STEPS, MOE_FUSE_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = train.make_optimizer()
+    state = train.init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, opt,
+        device="cuda", init_fn=mixtral.init_params)
+    step = train.build_train_step(cfg, opt, loss_fn=mixtral.loss_fn,
+                                  n_fused=fuse)
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(1),
+                           table, (n, B, S + 1))
+    reset_launches()
+    losses = []
+    for c in range(n // fuse):
+        state, loss = step(state, batches[c * fuse:(c + 1) * fuse])
+        losses.append(loss)
+        if c == 0:  # the first call (warm-up steps and capture) is left out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    graph = check_graphed(step, n, "Mixtral fused training")
+    check_train_launches(launches, cfg.n_layers, n, False,
+                         "Mixtral fused training")
+    losses = [x.item() for x in losses]
+    want = [eager_losses[(c + 1) * fuse - 1] for c in range(n // fuse)]
+    diffs = [abs(a - b) for a, b in zip(losses, want)]
+    tok_s = (n - fuse) * B * S / steady_s
+    profile = idle_profile(lambda: step(state, batches[:fuse]))
+    print(f"Mixtral fused training ({cfg.n_layers} layers at 8x7B width, "
+          f"B={B} S={S}, --fuse-steps {fuse}) on {card}: losses {losses} "
+          f"against eager {want} (diff {diffs}, bit-equal {losses == want}); "
+          f"steady {tok_s:.1f} tokens/s over {n - fuse} steps ({steady_s:.3f}"
+          f" s); peak memory {peak:.3f} GiB; {graph}; launches {launches}; "
+          f"one call under the profiler {profile}")
+    # routing flips on the last bits of a logit, so trajectories part
+    # within a call (two eager runs by ~0.5 nats at step 10): the losses
+    # must be finite and below the first step's, and a replay is held to
+    # an eager step from the same state
+    if not (all(np.isfinite(losses)) and max(losses) < eager_losses[0]):
+        raise AssertionError(f"Mixtral graphed losses {losses}, the first "
+                             f"eager step's {eager_losses[0]}")
+    parity = one_step_parity(step, state, batches[:1])
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return {"losses": losses, "loss_diffs": diffs, "tok_s": tok_s,
+            "peak_mem_gib": peak, "graph": graph, "launches": launches,
+            "profile": profile, "one_step_parity": parity}
+
+
+def profile_dir_phase(card: str) -> dict:
+    """``--profile-dir`` on the training flagship at ``--fuse-steps 8``, 16
+    steps: the second call is traced, and the trace must exist and name
+    the fused backward kernel."""
+    import tempfile
+
+    from nanotpu_torch.parallel import train
+
+    with tempfile.TemporaryDirectory() as prof:
+        train.run(TRAIN_ARGV + ["--steps", str(2 * FUSE_STEPS),
+                                "--fuse-steps", str(FUSE_STEPS),
+                                "--profile-dir", prof])
+        traces = [os.path.join(prof, f) for f in os.listdir(prof)
+                  if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"--profile-dir wrote {os.listdir(prof)}")
+        with open(traces[0]) as f:
+            text = f.read()
+    out = {"trace_bytes": len(text),
+           "bwd_kv_bf16_events": text.count("bwd_kv_bf16"),
+           "flash_fwd_bf16_events": text.count("flash_fwd_bf16")}
+    print(f"--profile-dir trace of one fused call on {card}: {out}")
+    if not out["bwd_kv_bf16_events"]:
+        raise AssertionError("the --profile-dir trace names no fused "
+                             "backward kernel")
+    return out
+
+
 def mixtral_serving_phase(card: str) -> dict:
     """Mixtral 8x7B's widths at MOE_SERVE_LAYERS layers (random weights
     from a seed, bf16, flash prefill) on an ``Engine(params,
@@ -1917,8 +2411,13 @@ def main() -> None:
     bench_phase(card)
     trained = training_phase(card)
     two_pass = two_pass_phase()
+    fused = fused_training_phase(card)
+    fused_two_pass = fused_two_pass_phase()
+    profile_dir_phase(card)
     train_parity_phase()
+    trained_target_phase(card)
     moe_train = mixtral_training_phase(card)
+    moe_fused = mixtral_fused_training_phase(card, moe_train["losses"])
     moe_serve = mixtral_serving_phase(card)
 
     # each path's launches, counted from 0 just before it ran and read just
@@ -1927,7 +2426,10 @@ def main() -> None:
                "graphs": graphed["launches"],
                "distill": spec["distill_launches"],
                "speculative": spec["launches"], "train": trained["launches"],
-               "two_pass": two_pass, "mixtral_train": moe_train["launches"],
+               "two_pass": two_pass, "fused_train": fused["launches"],
+               "fused_two_pass": fused_two_pass,
+               "mixtral_train": moe_train["launches"],
+               "mixtral_fused_train": moe_fused["launches"],
                "mixtral_serving": moe_serve["launches"],
                "mixtral_rounds": moe_serve["graph_launches"]}
 

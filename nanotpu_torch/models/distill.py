@@ -139,7 +139,8 @@ def make_distill_step(dcfg: LlamaConfig, lr=3e-4,
                          draft_params, mask),
                 tokens, teacher_logits, dcfg, label_temperature, loss)
             grads = torch.autograd.grad(value, trainable)
-        rate = lr(opt_state["count"]) if callable(lr) else lr
+        # a schedule reads the update count on the host
+        rate = lr(int(opt_state["count"])) if callable(lr) else lr
         dataclasses.replace(base, lr=rate).update(grads, opt_state,
                                                   draft_params["layers"])
         return draft_params, opt_state, value.detach()

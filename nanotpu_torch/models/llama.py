@@ -230,7 +230,9 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _remat_layer(cfg: LlamaConfig):
     """decoder_layer under a non-reentrant checkpoint: nothing saved
-    ("full"), or the matmul outputs saved ("dots")."""
+    ("full"), or the matmul outputs saved ("dots"). No op in a layer draws
+    a random number, so the RNG state is not stashed: reading the CUDA
+    generator's state is refused while a graph captures the step."""
     if cfg.remat_policy not in ("full", "dots"):
         raise ValueError(f"remat_policy {cfg.remat_policy!r} is not one of "
                          "'full', 'dots'")
@@ -241,7 +243,8 @@ def _remat_layer(cfg: LlamaConfig):
 
     def layer(params, x, cfg, cos, sin):
         return checkpoint(decoder_layer, params, x, cfg, cos, sin,
-                          use_reentrant=False, **kw)
+                          use_reentrant=False, preserve_rng_state=False,
+                          **kw)
 
     return layer
 
@@ -284,8 +287,9 @@ def _chunk_nll(lm_head: torch.Tensor, h: torch.Tensor,
 def next_token_nll(lm_head, x: torch.Tensor,
                    targets: torch.Tensor) -> torch.Tensor:
     """Mean NLL of ``targets [B, S]`` under the logits ``x @ lm_head``, in
-    sequence chunks of CE_CHUNK (each under a non-reentrant checkpoint)
-    when the length divides, in one piece otherwise."""
+    sequence chunks of CE_CHUNK (each under a non-reentrant checkpoint,
+    without the RNG stash, as in :func:`_remat_layer`) when the length
+    divides, in one piece otherwise."""
     B, S = targets.shape
     if S <= CE_CHUNK or S % CE_CHUNK:
         return _chunk_nll(lm_head, x, targets) / (B * S)
@@ -294,6 +298,7 @@ def next_token_nll(lm_head, x: torch.Tensor,
         total = total + checkpoint(
             _chunk_nll, lm_head, x[:, i:i + CE_CHUNK],
             targets[:, i:i + CE_CHUNK], use_reentrant=False,
+            preserve_rng_state=False,
         )
     return total / (B * S)
 

@@ -822,3 +822,178 @@ def test_moe_quantize_on_card_matches_cpu(card):
     assert on_card["layers"][0]["moe"]["w_gate"].s.shape == (8, 1, 1024)
     for a, b in zip(leaves(on_card), leaves(on_cpu)):
         assert torch.equal(a.cpu(), b)
+
+
+# -- the trainer's fused steps: one step captured as a CUDA graph ------------
+
+def _train_models(card, model, dtype):
+    """A tiny training config with the flash kernels (head_dim 64) and its
+    (cfg, params, loss_fn, init_fn)."""
+    from nanotpu_torch.models import mixtral
+
+    if model == "mixtral":
+        cfg = dataclasses.replace(mixtral.MixtralConfig.tiny(), dim=128,
+                                  n_heads=2, n_kv_heads=1, ffn_dim=128,
+                                  attn_impl="flash", dtype=dtype)
+        return cfg, mixtral.loss_fn, mixtral.init_params
+    cfg = LlamaConfig(vocab_size=256, dim=128, n_layers=2, n_heads=2,
+                      n_kv_heads=1, ffn_dim=256, max_seq_len=256,
+                      attn_impl="flash", dtype=dtype)
+    return cfg, None, None
+
+
+def _train_run(card, model, dtype, n_fused, calls, tokens):
+    """``calls`` calls of a fresh state's train step (``tokens`` [steps,
+    B, S+1]): (losses a call, final state, step function)."""
+    from nanotpu_torch.parallel import train
+
+    cfg, loss_fn, init_fn = _train_models(card, model, dtype)
+    opt = train.make_optimizer()
+    state = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   opt, device=card, init_fn=init_fn)
+    step = train.build_train_step(cfg, opt, loss_fn=loss_fn, n_fused=n_fused)
+    losses = []
+    for c in range(calls):
+        block = tokens[c * n_fused:(c + 1) * n_fused]
+        state, loss = step(state, block[0] if n_fused == 1 else block)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return [x.item() for x in losses], state, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["llama", "mixtral"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_train_steps_equal_eager(card, model, dtype):
+    """Two calls of a fused step of 4 (2 eager warm-up steps, a capture,
+    6 replays of the captured step with the flash forward and fused
+    backward in it) against 8 eager steps from the same state on the same
+    batches: each call's last loss within 1e-6 in f32 (2e-2 in bf16) of
+    the eager loss at its step, parameters, moments and count after 8
+    steps within a tenth of an Adam step in f32 (2e-2 in bf16)."""
+    tokens = torch.randint(0, 256, (8, 2, 65), device=card,
+                           generator=torch.Generator(device=card).manual_seed(1))
+    eager, want, _ = _train_run(card, model, dtype, 1, 8, tokens)
+    got, graphed, step = _train_run(card, model, dtype, 4, 2, tokens)
+    loss_tol, state_tol = (1e-6, 3e-5) if dtype == "float32" else (2e-2, 2e-2)
+    assert step.graphed.graph is not None and step.graphed.replays == 6
+    assert step.graphed.warmup_steps == 2
+    assert graphed.step == want.step == 8
+    assert abs(got[0] - eager[3]) <= loss_tol
+    assert abs(got[1] - eager[7]) <= loss_tol
+    assert torch.equal(graphed.opt_state["count"], want.opt_state["count"])
+    for a, b in zip(leaves(graphed.params) + leaves(graphed.opt_state),
+                    leaves(want.params) + leaves(want.opt_state)):
+        assert (a.float() - b.float()).abs().max().item() <= state_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "two_pass"])
+def test_graphed_train_step_launches_are_exact(card, path, monkeypatch):
+    """The wrappers count on the host: capture's launches are taken back
+    and each replay adds one step's, so 8 steps of a 2-layer model count
+    16 forward and 16 backward launches (fused, or dq and dk/dv with
+    FUSED_BWD_MAX_S = 0) whether a step ran eagerly or replayed."""
+    if path == "two_pass":
+        monkeypatch.setattr(att, "FUSED_BWD_MAX_S", 0)
+    tokens = torch.randint(0, 256, (8, 2, 65), device=card)
+    fns = (att.flash_attention, att.flash_bwd_fused, att.flash_bwd_dq,
+           att.flash_bwd_dkv)
+    before = [fn.launches for fn in fns]
+    _, _, step = _train_run(card, "llama", "float32", 4, 2, tokens)
+    counts = [fn.launches - n for fn, n in zip(fns, before)]
+    assert counts == ([16, 16, 0, 0] if path == "fused" else [16, 0, 16, 16])
+    assert step.graphed.launches_per_replay == [c // 8 for c in counts]
+
+
+@pytest.mark.cuda
+def test_fused_step_refuses_another_state(card):
+    from nanotpu_torch.parallel import train
+
+    tokens = torch.randint(0, 256, (4, 2, 65), device=card)
+    _, state, step = _train_run(card, "llama", "float32", 4, 1, tokens)
+    cfg, _, _ = _train_models(card, "llama", "float32")
+    other = train.init_train_state(torch.Generator().manual_seed(1), cfg,
+                                   train.make_optimizer(), device=card)
+    with pytest.raises(ValueError, match="bound to the tensors"):
+        step(other, tokens)
+    step(state, tokens)  # its own state still replays
+    assert step.graphed.replays == 6
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dead_graph_awaiting_collection(card):
+    """A CUDA graph left in a dead reference cycle (an engine's, say) is
+    destroyed when the cycle is collected, and destroying a graph while
+    another captures invalidates that capture: the graphed step collects
+    before it captures. Here a collection runs inside the capture, with
+    automatic collection off until then."""
+    import gc
+
+    from nanotpu_torch.parallel import train
+
+    cfg, _, _ = _train_models(card, "llama", "float32")
+
+    def collecting_loss(params, tokens, cfg):
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return tl.loss_fn(params, tokens, cfg)
+
+    x = torch.zeros(4, device=card)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        x.add_(1)
+    torch.cuda.current_stream().wait_stream(stream)
+    opt = train.make_optimizer()
+    state = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   opt, device=card)
+    step = train.build_train_step(cfg, opt, loss_fn=collecting_loss,
+                                  n_fused=4)
+    tokens = torch.randint(0, 256, (4, 2, 65), device=card,
+                           generator=torch.Generator(device=card).manual_seed(2))
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        dead = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(dead, stream=stream):
+            x.add_(1)
+        cycle = {"graph": dead}
+        cycle["self"] = cycle
+        del dead, cycle
+        step(state, tokens)
+    finally:
+        if collecting:
+            gc.enable()
+    torch.cuda.synchronize()
+    assert step.graphed.replays == 2 and int(state.opt_state["count"]) == 4
+
+
+@pytest.mark.cuda
+def test_uncapturable_train_step_raises(card):
+    """A step with a host sync in its loss captures nothing: the capture
+    raises, after the two eager warm-up steps, and never runs eagerly in
+    its place. Last in the file: a failed capture leaves the process's
+    default CUDA generator in its capture state."""
+    from nanotpu_torch.parallel import train
+
+    cfg, _, _ = _train_models(card, "llama", "float32")
+
+    def syncing_loss(params, tokens, cfg):
+        loss = tl.loss_fn(params, tokens, cfg)
+        if loss.item() < 0:  # a host read: refused under capture
+            raise AssertionError("negative loss")
+        return loss
+
+    opt = train.make_optimizer()
+    state = train.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   opt, device=card)
+    step = train.build_train_step(cfg, opt, loss_fn=syncing_loss, n_fused=4)
+    tokens = torch.randint(0, 256, (4, 2, 65), device=card)
+    with pytest.raises(RuntimeError):
+        step(state, tokens)
+    assert step.graphed.graph is None and step.graphed.replays == 0
+    assert step.graphed.warmup_steps == 2
+    torch.cuda.synchronize()
+    assert int(state.opt_state["count"]) == 2
+

@@ -392,3 +392,53 @@ def test_train_step_equals_nanotpus():
                     jax.tree_util.tree_leaves(jstate.params)):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0,
                                    atol=3e-5)
+
+
+def test_fused_train_steps_equal_unfused_and_nanotpus():
+    """build_train_step(n_fused=4) on a [4, B, S+1] block: the state and
+    last loss bit-equal to 4 eager port steps, and within the train-step
+    tolerances of nanotpu's n_fused=4 step (lax.scan over the block) from
+    the same parameters."""
+    from nanotpu.parallel import train as jtrain
+    from nanotpu.parallel.mesh import make_mesh, mixtral_param_specs
+
+    params = jm.init_params(jax.random.PRNGKey(0), CFG_J)
+    start = jax.tree_util.tree_map(np.array, params)  # nanotpu donates its
+    block = np.random.default_rng(11).integers(0, 256, (4, 2, 33)).astype(
+        np.int32)
+    mesh = make_mesh(devices=jax.devices()[:1])
+    jopt = jtrain.make_optimizer()
+    jstate = jtrain.TrainState(params, jopt.init(params),
+                               jnp.zeros((), jnp.int32))
+    jstep = jtrain.build_train_step(CFG_J, mesh, jopt, loss_fn=jm.loss_fn,
+                                    param_specs=mixtral_param_specs(CFG_J),
+                                    n_fused=4)
+    jstate, jloss = jstep(jstate, jnp.asarray(block))
+
+    topt = ttrain.make_optimizer()
+    states, losses = [], []
+    for n_fused in (1, 4):
+        tparams = port(start)
+        state = ttrain.TrainState(tparams, topt.init(tparams), 0)
+        step = ttrain.build_train_step(CFG_T, topt, loss_fn=tm.loss_fn,
+                                       n_fused=n_fused)
+        rows = torch.from_numpy(block).long()
+        for tokens in (rows if n_fused == 1 else [rows]):
+            state, loss = step(state, tokens)
+        states.append(state)
+        losses.append(loss)
+    (eager, fused), (want, got) = states, losses
+    assert fused.step == eager.step == 4 == int(jstate.step)
+    assert torch.equal(got, want)
+    for a, b in zip(leaves(fused.params) + leaves(fused.opt_state),
+                    leaves(eager.params) + leaves(eager.opt_state)):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(got.item(), float(jloss), rtol=0, atol=1e-5)
+    adam = jstate.opt_state[1][0]
+    for mine, theirs, atol in ((fused.params, jstate.params, 3e-5),
+                               (fused.opt_state["mu"], adam.mu, 1e-6),
+                               (fused.opt_state["nu"], adam.nu, 1e-6)):
+        for a, b in zip(leaves(mine), jax.tree_util.tree_leaves(theirs)):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                       rtol=0, atol=atol)
+    assert int(fused.opt_state["count"]) == int(adam.count) == 4

@@ -234,20 +234,202 @@ def test_cli_raises_without_a_card(monkeypatch):
         ttrain.run(["--steps", "1"])
 
 
-@pytest.mark.parametrize("argv", [
-    ["--tp", "2"], ["--dp", "2"], ["--sp", "2"], ["--pp", "2"],
-    ["--microbatches", "4"], ["--fuse-steps", "2"], ["--profile-dir", "x"],
-    ["--model", "mixtral", "--remat"], ["--preset", "nope"],
+@pytest.mark.parametrize("argv,want", [
+    (["--tp", "2"], "not ported"), (["--dp", "2"], "not ported"),
+    (["--sp", "2"], "not ported"), (["--pp", "2"], "not ported"),
+    (["--microbatches", "4"], "not ported"),
+    (["--steps", "10", "--fuse-steps", "4"], "must be a multiple"),
+    (["--model", "mixtral", "--remat"],
+     "--remat is wired for the dense llama stack only"),
+    (["--preset", "nope"], "no preset"),
 ])
-def test_cli_refuses_what_is_not_ported(argv, capsys):
-    """The flags the port has not ported, a preset nanotpu lacks, and
-    ``--remat`` on Mixtral, which nanotpu refuses too."""
+def test_cli_refuses_what_is_not_ported(argv, want, capsys):
+    """The mesh flags, which the port has not ported; what nanotpu refuses
+    too: a step count that is not a whole number of fused calls, ``--remat``
+    on Mixtral and a preset it lacks."""
     with pytest.raises(SystemExit):
         ttrain.run(["--device", "cpu"] + argv)
-    want = {"nope": "no preset",
-            "--remat": "--remat is wired for the dense llama stack only"
-            }.get(argv[-1], "not ported")
     assert want in capsys.readouterr().err
+
+
+# -- fused steps, the device step count, the profiler ------------------------
+
+def _fresh_state(cfg, opt):
+    return ttrain.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                                   device="cpu")
+
+
+def _state_tensors(state):
+    return leaves(state.params) + leaves(state.opt_state)
+
+
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_fused_steps_equal_unfused(attn):
+    """n_fused=4 on a [4, B, S+1] block runs the body of 4 eager steps:
+    the last loss, parameters, moments and count are bit-equal."""
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(), attn_impl=attn)
+    block = torch.from_numpy(np.stack([tokens_for(20 + i, 2, 33)
+                                       for i in range(4)]))
+    opt = ttrain.make_optimizer()
+    eager = _fresh_state(cfg, opt)
+    step = ttrain.build_train_step(cfg, opt)
+    for row in block:
+        eager, want = step(eager, row)
+    fused = _fresh_state(cfg, opt)
+    fstep = ttrain.build_train_step(cfg, opt, n_fused=4)
+    assert isinstance(fstep, ttrain.FusedTrainStep)
+    fused, got = fstep(fused, block)
+    assert fused.step == eager.step == 4 and fstep.graphed is None
+    assert torch.equal(got, want) and not got.requires_grad
+    for a, b in zip(_state_tensors(fused), _state_tensors(eager)):
+        assert torch.equal(a, b)
+    assert fused.opt_state["count"].dtype == torch.int32
+    assert int(fused.opt_state["count"]) == 4
+    with pytest.raises(ValueError, match="want tokens"):
+        fstep(fused, block[:3])
+
+
+def test_fused_steps_match_jax(jax_params):
+    """The port's n_fused=4 step against nanotpu's (lax.scan over the
+    block) on a one-device mesh, flash attention in both, from the same
+    parameters: the last loss and the state at the train-step
+    tolerances."""
+    over = dict(attn_impl="flash")
+    cfg_j = dataclasses.replace(jl.LlamaConfig.tiny(), **over)
+    cfg_t = dataclasses.replace(tl.LlamaConfig.tiny(), **over)
+    start = jax.tree_util.tree_map(np.array, jax_params)
+    block = np.stack([tokens_for(300 + i, 2, 33) for i in range(4)])
+
+    opt_j = jtrain.make_optimizer()
+    mesh = make_mesh(devices=jax.devices()[:1])
+    state_j = jtrain.place_state(
+        jtrain.TrainState(jax_params, opt_j.init(jax_params),
+                          jnp.zeros((), jnp.int32)), cfg_j, mesh)
+    state_j, loss_j = jtrain.build_train_step(cfg_j, mesh, opt_j, n_fused=4)(
+        state_j, jnp.asarray(block))
+
+    opt_t = ttrain.make_optimizer()
+    params = params_from_numpy(start, "cpu")
+    state_t = ttrain.TrainState(params, opt_t.init(params), 0)
+    state_t, loss_t = ttrain.build_train_step(cfg_t, opt_t, n_fused=4)(
+        state_t, torch.from_numpy(block))
+
+    assert state_t.step == 4 == int(state_j.step)
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), atol=1e-5)
+    adam_j = state_j.opt_state[1][0]
+    for got, want, atol in ((state_t.params, state_j.params, 3e-5),
+                             (state_t.opt_state["mu"], adam_j.mu, 1e-6),
+                             (state_t.opt_state["nu"], adam_j.nu, 1e-6)):
+        for a, b in zip(leaves(got), jax.tree_util.tree_leaves(want)):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                       atol=atol)
+    assert int(state_t.opt_state["count"]) == int(adam_j.count)
+
+
+def test_bias_corrections_equal_numpy_f32():
+    """1 - b ** count on the device, for counts 1-1000, within one ulp of
+    the f32 values the host computed in numpy before the count moved to
+    the device (``np.float32(1) - np.float32(b) ** np.int32(count)``)."""
+    count = torch.arange(1, 1001, dtype=torch.int32)
+    got = ttrain.bias_corrections(count, 0.9, 0.95)
+    for g, b in zip(got, (0.9, 0.95)):
+        assert g.dtype == torch.float32 and g.shape == count.shape
+        want = np.array([np.float32(1) - np.float32(b) ** np.int32(c)
+                         for c in range(1, 1001)], dtype=np.float32)
+        np.testing.assert_array_max_ulp(g.numpy(), want, maxulp=1)
+
+
+def test_count_lives_on_the_device_and_advances_in_place():
+    opt = ttrain.make_optimizer()
+    p = {"w": torch.ones(4)}
+    state = opt.init(p)
+    count = state["count"]
+    assert count.dtype == torch.int32 and count.shape == ()
+    for _ in range(3):
+        opt.update([torch.full((4,), 0.1)], state, p)
+    assert state["count"] is count and int(count) == 3
+
+
+def test_restore_reads_a_checkpoint_with_an_int_count(tmp_path):
+    """A checkpoint whose count is a Python int (the format written before
+    the count moved to the device) restores with a tensor count and trains
+    on from it."""
+    cfg = tl.LlamaConfig.tiny()
+    opt = ttrain.make_optimizer()
+    state = _fresh_state(cfg, opt)
+    step = ttrain.build_train_step(cfg, opt)
+    tokens = torch.from_numpy(tokens_for(5, 2, 17))
+    for _ in range(2):
+        state, _ = step(state, tokens)
+    path = tmp_path / "step_2"
+    path.mkdir()
+    torch.save({"params": map_tree(lambda t: t.detach(), state.params),
+                "opt_state": {"count": 2, "mu": state.opt_state["mu"],
+                              "nu": state.opt_state["nu"]},
+                "step": 2}, path / "state.pt")
+    like = ttrain.init_train_state(torch.Generator().manual_seed(1), cfg, opt,
+                                   device="cpu")
+    got = ttrain.restore_checkpoint(str(tmp_path), like)
+    count = got.opt_state["count"]
+    assert got.step == 2 and count.dtype == torch.int32 and int(count) == 2
+    got, loss = step(got, tokens)
+    state, want = step(state, tokens)
+    assert int(got.opt_state["count"]) == 3 and torch.equal(loss, want)
+    for a, b in zip(_state_tensors(got), _state_tensors(state)):
+        assert torch.equal(a, b)
+
+
+def test_cli_fused_steps_runs_and_steps_count(tmp_path):
+    """tests/test_train_cli.py's case: --fuse-steps K trains K optimizer
+    steps a call, and the checkpoint's step counts every step."""
+    ckpt = tmp_path / "ck"
+    out = ttrain.run(["--device", "cpu", "--model", "llama", "--preset",
+                      "tiny", "--steps", "8", "--fuse-steps", "4", "--batch",
+                      "2", "--seq", "32", "--checkpoint-dir", str(ckpt),
+                      "--save-every", "8"])
+    assert [s for s, _ in out["losses"]] == [4, 8]
+    assert out["state"].step == 8 and out["tok_s"] > 0
+    assert sorted(p.name for p in ckpt.iterdir()) == ["step_8"]
+    cfg = tl.LlamaConfig(**ttrain._PRESETS[("llama", "tiny")])
+    opt = ttrain.make_optimizer()
+    restored = ttrain.restore_checkpoint(str(ckpt), _fresh_state(cfg, opt))
+    assert restored.step == 8 and int(restored.opt_state["count"]) == 8
+
+
+def test_cli_fused_losses_equal_unfused(tmp_path):
+    """The same data (gen_chunk is a whole number of calls) through
+    --fuse-steps 2 and 1: every fused call's loss is the unfused run's at
+    that step."""
+    argv = ["--device", "cpu", "--steps", "6", "--seq", "33", "--data",
+            "markov"]
+    one = dict(ttrain.run(argv)["losses"])
+    two = ttrain.run(argv + ["--fuse-steps", "2"])["losses"]
+    assert [s for s, _ in two] == [2, 4, 6]
+    assert all(v == one[s] for s, v in two)
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path):
+    """--profile-dir traces the steady-state calls into a TensorBoard
+    trace with aten:: events."""
+    prof = tmp_path / "prof"
+    out = ttrain.run(["--device", "cpu", "--steps", "8", "--fuse-steps", "4",
+                      "--data", "markov", "--seq", "65", "--attn", "flash",
+                      "--profile-dir", str(prof)])
+    assert [s for s, _ in out["losses"]] == [4, 8]
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    assert '"aten::' in traces[0].read_text()
+
+
+def test_cli_profile_dir_needs_two_calls(tmp_path, caplog):
+    """With --steps < 2 x --fuse-steps there is no steady-state call:
+    nanotpu's warning, and no trace."""
+    prof = tmp_path / "prof"
+    with caplog.at_level("WARNING", logger="nanotpu_torch.train"):
+        ttrain.run(["--device", "cpu", "--steps", "1", "--profile-dir",
+                    str(prof)])
+    assert "--profile-dir ignored" in caplog.text
+    assert not prof.exists() or not any(prof.iterdir())
 
 
 def test_map_tree_keeps_structure():
