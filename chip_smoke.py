@@ -26,6 +26,16 @@ them:
    one's time, its bound, the plain version's and SDPA's backward
    (forward + backward minus forward), and the fused pass against the
    two-pass pair at S=8192 (B=1, 16/4 heads);
+4a. ring phase: ring attention's loop body (``attend_block`` and
+   ``merge`` of ``nanotpu_torch.parallel.ring_attention``) for each of 4
+   virtual ranks of an sp ring on the card, at the training flagship's
+   heads (16/4 of 64, bf16, B=1): S=8192 (blocks of 2048, the fused
+   backward) and S=32768 (blocks of 8192, the two-pass backward), each
+   rank's queries against the blocks in the order it receives them;
+   forward and backward against whole-sequence flash and, at S=8192, the
+   plain versions; launches exact (10 forward and 10 backward: the 6
+   future blocks launch nothing); timed against whole-sequence flash and
+   profiled (wall, device busy, the host's time to issue a call);
 5. serving phase: the serving flagship preset (vocab 32768, dim 1024, 12
    layers, 16/8 heads, bf16) at full width with 8 slots and max_len 2048,
    random weights from a seeded generator, behind the port's HTTP server;
@@ -92,6 +102,12 @@ them:
 11. training parity phase: one f32 train step of the flagship width from
     the same parameters through ``attn_impl="flash"`` and ``"dense"``: close
     loss, gradients and updated parameters;
+11b. mesh phase: a real NCCL process group of one process, ``make_mesh()``
+    over it (six axes of size 1) and the sharded step
+    (``build_train_step(..., mesh=mesh)`` on a state placed as DTensors by
+    nanotpu's specs) on the training flagship, 10 steps with flash and 10
+    with ring attention over sp: losses against the plain step's from the
+    same state and batches, launches exact, tokens/s of each;
 11a. trained-target phase: the training flagship trained 480 steps on
     the Markov corpus at ``--fuse-steps 8`` (its loss must fall; beside the
     Markov floor), ``python -m nanotpu_torch.models.distill --target-ckpt
@@ -124,8 +140,9 @@ them:
 
 The last two lines are the kernel table and the device record, as JSON.
 Each path (serving, int8 serving, graphs, distill, speculative, training,
-two-pass, fused training, graphed two-pass, and Mixtral's training, fused
-training, serving drive and serving rounds) counts its kernel launches
+two-pass, fused training, graphed two-pass, Mixtral's training, fused
+training, serving drive and serving rounds, the ring's two cases and the
+mesh step with flash and with the ring) counts its kernel launches
 from 0 and reads them just after it ran; the table gives each path's count
 and their sum. A decode graph captures no flash launch, so each serving
 path's count stays exact: the forward kernel once a layer for each
@@ -470,6 +487,146 @@ def backward_phase(card: str) -> dict:
           f"{fused:.4f} ms, two-pass pair {pair:.4f} ms")
     reset_launches()  # comparisons and timings do not count
     return rows
+
+
+#: the ring phase: virtual ranks, and (S, whether S / RING_SP is past
+#: FUSED_BWD_MAX_S, so that the ring's backward runs the two-pass kernels)
+RING_SP = 4
+RING_CASES = ((4 * TRAIN_S, False), (16 * TRAIN_S, True))
+#: the ring's bf16 gradients against the plain versions: the kernels'
+#: TOLERANCE plus bf16's unit roundoff (2^-8) for each rounding the ring
+#: adds to a gradient, as nanotpu's ring does: each of the RING_SP blocks'
+#: gradients rounded to bf16, and RING_SP - 1 sums in bf16
+RING_GRAD_TOL = TOLERANCE[torch.bfloat16] + (2 * RING_SP - 1) * 2**-8
+
+
+def ring_all_ranks(q, k, v, sp: int):
+    """The ring's loop body for each of ``sp`` virtual ranks on one card, in
+    the order a rank meets its blocks: at step s, rank r's queries against
+    the block of rank (r - s) % sp (``attend_block``), merged into its
+    running (out, lse) (``merge``). Returns the whole out (q's dtype) and
+    lse, differentiable in q, k and v."""
+    from nanotpu_torch.ops.attention import NEG_INF
+    from nanotpu_torch.parallel.ring_attention import attend_block, merge
+
+    B, S, H, _ = q.shape
+    blk = S // sp
+    outs, lses = [], []
+    for r in range(sp):
+        q_r = q[:, r * blk:(r + 1) * blk]
+        o = torch.zeros(q_r.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full((B, H, blk), NEG_INF, dtype=torch.float32,
+                         device=q.device)
+        for s in range(sp):
+            src = (r - s) % sp
+            o, lse = merge(o, lse, *attend_block(
+                q_r, k[:, src * blk:(src + 1) * blk],
+                v[:, src * blk:(src + 1) * blk], src, r, causal=True))
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+def ring_phase(card: str) -> dict:
+    """Ring attention's loop body at the training flagship's heads (16/4 of
+    64, bf16, B=1) for RING_SP virtual ranks: S=8192 (blocks of 2048, the
+    fused backward) and S=32768 (blocks of 8192, the two-pass backward).
+    Forward and backward (a random dO) of every rank. At S=8192 both are
+    held against the plain versions in f32: out and lse to TOLERANCE, the
+    gradients row-scaled as in ``backward_phase``, whose plain backward
+    takes the kernels' own out and lse (D = rowsum(dO * O) moves the
+    gradients of short rows by more than the kernels' rounding does): here
+    the ring's merged out and lse, to RING_GRAD_TOL. At both lengths they
+    are held against whole-sequence ``flash_attention_lse``: out and lse to
+    TOLERANCE, the gradients row-scaled (on flash's) to TOLERANCE +
+    RING_GRAD_TOL, each of the two being that far from the exact gradient
+    at most. Launches exact: the 10 visible blocks of 4 ranks (6 past, 4
+    self) once each forward and backward; the 6 future blocks launch
+    nothing. Then the ring's forward and backward timed against
+    whole-sequence flash (CUDA events), and one call of each under the
+    profiler (wall, device busy, idle share) with the host's time to
+    issue it. Each case is a path of its own."""
+    from nanotpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    launches, rows = {}, {}
+    for S, two_pass in RING_CASES:
+        q, k, v = (t.requires_grad_() for t in qkv(gen, 1, S, 16, 4, 64,
+                                                     torch.bfloat16))
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        reset_launches()
+        out, lse = ring_all_ranks(q, k, v, RING_SP)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        got = read_launches()
+        n = RING_SP * (RING_SP + 1) // 2
+        want = {"flash_fwd": n, "flash_bwd_fused": 0 if two_pass else n,
+                "flash_bwd_dq": n if two_pass else 0,
+                "flash_bwd_dkv": n if two_pass else 0}
+        label = f"ring S={S} sp={RING_SP} (blocks of {S // RING_SP})"
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        launches["ring_two_pass" if two_pass else "ring"] = got
+        ref_out, ref_lse = att.flash_attention_lse(q, k, v, True)
+        ref_grads = torch.autograd.grad(ref_out, (q, k, v), dout)
+        errs = {"flash_fwd": check_forward(
+            f"{label} against whole-sequence flash", out, lse,
+            ref_out.float(), ref_lse, torch.bfloat16)}
+        _, _, errs["bwd_vs_flash"] = grad_errs(grads, [g.float()
+                                                      for g in ref_grads])
+        tol = {"flash_fwd": TOLERANCE[torch.bfloat16],
+               "fwd_vs_plain": TOLERANCE[torch.bfloat16],
+               "bwd_vs_plain": RING_GRAD_TOL,
+               "bwd_vs_flash": TOLERANCE[torch.bfloat16] + RING_GRAD_TOL}
+        if not two_pass:  # the plain versions fit at S=8192 (~30 GiB)
+            del ref_grads
+            with torch.no_grad():
+                p_out, p_lse = att.attention_lse_ref(q.float(), k.float(),
+                                                     v.float(), True)
+                errs["fwd_vs_plain"] = check_forward(
+                    f"{label} against attention_lse_ref", out, lse, p_out,
+                    p_lse, torch.bfloat16)
+                del p_out, p_lse
+                p_grads = att.attention_bwd_ref(
+                    q.float(), k.float(), v.float(), out.float(), lse,
+                    dout.float(), True)
+                _, _, errs["bwd_vs_plain"] = grad_errs(grads, p_grads)
+                del p_grads
+        print(f"{label}: errors {errs} (backward row-scaled), tolerances "
+              f"{tol}; launches {got}")
+        bad = [k_ for k_, e in errs.items() if not e <= tol[k_]]
+        if bad:
+            raise AssertionError(f"{label} disagrees: {bad} in {errs}")
+        del out, lse, grads, ref_out, ref_lse
+        reps = 5 if two_pass else 10
+        ring_ms = cuda_ms(lambda: torch.autograd.grad(
+            ring_all_ranks(q, k, v, RING_SP)[0], (q, k, v), dout), reps=reps)
+        flash_ms = cuda_ms(lambda: torch.autograd.grad(
+            att.flash_attention_lse(q, k, v, True)[0], (q, k, v), dout),
+            reps=reps)
+        profiles = {}
+        for name, fn in (
+                ("ring", lambda: torch.autograd.grad(
+                    ring_all_ranks(q, k, v, RING_SP)[0], (q, k, v), dout)),
+                ("whole_flash", lambda: torch.autograd.grad(
+                    att.flash_attention_lse(q, k, v, True)[0], (q, k, v),
+                    dout))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            profiles[name] = {**idle_profile(fn), "host_issue_ms": host_ms}
+        rows[S] = {"blocks": S // RING_SP, "ring_ms": ring_ms,
+                   "whole_flash_ms": flash_ms, "errors": errs,
+                   "profiles": profiles}
+        print(f"{label} on {card}: forward+backward of all {RING_SP} ranks "
+              f"{ring_ms:.4f} ms, whole-sequence flash {flash_ms:.4f} ms "
+              f"(x{ring_ms / flash_ms:.3f}); one call each under the "
+              f"profiler {profiles}")
+        del q, k, v, dout
+    reset_launches()  # comparisons and timings do not count
+    return {"launches": launches, "rows": rows}
 
 
 #: the bf16 kernels in the assembler's report, by mangled name: the
@@ -1765,6 +1922,109 @@ def train_parity_phase() -> None:
         raise AssertionError("flash and dense f32 train steps disagree")
 
 
+#: the mesh phase: steps a run, and how far a mesh step's loss may part
+#: from the plain step's on the same state and batches: bf16's TOLERANCE
+#: (two eager runs of the plain step part by ~2e-3 over 9 steps)
+MESH_STEPS = 10
+
+
+def mesh_training_phase(card: str) -> dict:
+    """The sharded train step on a real NCCL process group of one process:
+    ``make_mesh()`` (six axes of size 1) and ``build_train_step(cfg, opt,
+    mesh=mesh)`` on the training flagship (8 layers, B=8, S=2048, flash),
+    the state placed as DTensors by nanotpu's specs (``place_state``: wq
+    P(fsdp, tp) and so on), MESH_STEPS steps; then the same with
+    ``attn_impl="ring"`` (ring attention over sp of size 1). Every NCCL
+    collective of the step runs, on groups of one: the fsdp gather at use
+    and its reduce-scatter, the tp all-reduces and the vocab-parallel cross
+    entropy's, the gradient and loss all-reduces over the data axes and the
+    global norm's; the ring's exchange between ranks does not (one rank
+    sends nothing). Each run's losses must stay within TOLERANCE of the
+    plain step's from the same state on the same batches, and its launches
+    exact (one forward and one fused backward a layer a step); steady
+    tokens/s of the plain step and of each mesh run."""
+    import torch.distributed as dist
+
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import llama
+    from nanotpu_torch.parallel import mesh as tmesh
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.tree import leaves, map_tree
+
+    cfg = llama.LlamaConfig(**dict(train._PRESETS[("llama", "flagship")],
+                                   attn_impl="flash"))
+    opt = train.make_optimizer()
+    base = train.init_train_state(torch.Generator(device="cuda").manual_seed(6),
+                                  cfg, opt, device="cuda")
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(7),
+                           table, (MESH_STEPS, TRAIN_B, TRAIN_S + 1))
+
+    def fresh():
+        return train.TrainState(map_tree(lambda t: t.detach().clone(),
+                                         base.params),
+                                map_tree(lambda t: t.clone(), base.opt_state),
+                                0)
+
+    def drive(step, state) -> tuple:
+        losses = []
+        for i, tokens in enumerate(batches):
+            state, loss = step(state, tokens)
+            losses.append(loss)
+            if i == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        tok_s = (MESH_STEPS - 1) * TRAIN_B * TRAIN_S / (time.perf_counter() - t0)
+        return [x.item() for x in losses], tok_s
+
+    plain_losses, plain_tok_s = drive(train.build_train_step(cfg, opt), fresh())
+    print(f"plain step, {MESH_STEPS} steps of the training flagship on {card}: "
+          f"losses {[round(x, 4) for x in plain_losses]}; {plain_tok_s:.1f} "
+          f"tokens/s")
+    out = {"plain": {"losses": plain_losses, "tok_s": plain_tok_s},
+           "launches": {}}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_mesh()
+        for attn in ("flash", "ring"):
+            c = dataclasses.replace(cfg, attn_impl=attn)
+            state = train.place_state(fresh(), c, mesh)
+            wq = state.params["layers"][0]["attn"]["wq"]
+            step = train.build_train_step(c, opt, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            losses, tok_s = drive(step, state)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            diff = max(abs(a - b) for a, b in zip(losses, plain_losses))
+            label = f"mesh step ({dist.get_backend()}, world 1, attn {attn})"
+            print(f"{label} on {card}: wq {type(wq).__name__} "
+                  f"{list(wq.placements)} on {mesh.mesh_dim_names}; losses "
+                  f"{[round(x, 4) for x in losses]}, largest difference from "
+                  f"the plain step's {diff:.3g} (tol "
+                  f"{TOLERANCE[torch.bfloat16]}); {tok_s:.1f} tokens/s "
+                  f"(plain {plain_tok_s:.1f}); peak memory {peak:.3f} GiB; "
+                  f"launches {launches}")
+            check_train_launches(launches, cfg.n_layers, MESH_STEPS, False,
+                                 label)
+            if not (all(np.isfinite(losses))
+                    and diff <= TOLERANCE[torch.bfloat16]):
+                raise AssertionError(f"{label}: losses {losses} against "
+                                     f"{plain_losses}")
+            if not all(type(t).__name__ == "DTensor"
+                       for t in leaves(state.params)):
+                raise AssertionError(f"{label}: parameters left their mesh")
+            out[attn] = {"losses": losses, "tok_s": tok_s,
+                         "max_loss_diff": diff, "peak_mem_gib": peak}
+            out["launches"]["mesh_" + attn] = launches
+            del state, step
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 #: Mixtral 8x7B's widths (nanotpu/parallel/train.py:219-222: vocab 32000,
 #: dim 4096, 32/8 heads of 128, ffn 14336, 8 experts, top-2, capacity factor
 #: 1.25, rope theta 1e6, bf16), cut in depth: the 32 layers (46.7 B
@@ -2400,6 +2660,7 @@ def main() -> None:
 
     rows = kernel_phase(card)
     bwd = backward_phase(card)
+    ring = ring_phase(card)
     moe_kernels = mixtral_kernel_phase(card)
     serve = serving_phase(card)
     parity_phase()
@@ -2415,6 +2676,7 @@ def main() -> None:
     fused_two_pass = fused_two_pass_phase()
     profile_dir_phase(card)
     train_parity_phase()
+    meshed = mesh_training_phase(card)
     trained_target_phase(card)
     moe_train = mixtral_training_phase(card)
     moe_fused = mixtral_fused_training_phase(card, moe_train["losses"])
@@ -2431,7 +2693,8 @@ def main() -> None:
                "mixtral_train": moe_train["launches"],
                "mixtral_fused_train": moe_fused["launches"],
                "mixtral_serving": moe_serve["launches"],
-               "mixtral_rounds": moe_serve["graph_launches"]}
+               "mixtral_rounds": moe_serve["graph_launches"],
+               **ring["launches"], **meshed["launches"]}
 
     def launches(name):
         counts = {path: n[name] for path, n in by_path.items()}
@@ -2457,6 +2720,9 @@ def main() -> None:
         # with lse) and the serving buckets (B=1)
         **{f"mixtral_train_{k}": v for k, v in moe_kernels["train"].items()},
         "mixtral_serve": moe_kernels["serve"],
+        # ring attention's body, 4 virtual ranks, forward and backward,
+        # against whole-sequence flash (blocks of 2048 and 8192)
+        "ring": ring["rows"],
     }]
     for name, row in bwd.items():
         kernels.append({

@@ -7,8 +7,16 @@ SwiGLU MLP; parameters are a dict of ``[in, out]`` weights used as
 attention through :func:`nanotpu_torch.ops.attention.flash_attention`;
 ``"dense"`` is the plain einsum chain. :func:`loss_fn` is the chunked
 next-token cross entropy, and ``remat`` recomputes each layer in backward
-through ``torch.utils.checkpoint``. The sequence-parallel attentions are
-not ported.
+through ``torch.utils.checkpoint``.
+
+On a mesh, the train step passes ``shard``
+(:class:`nanotpu_torch.parallel.mesh.Shards`) and the same functions run
+on this rank's shards: its batch rows and, over sp, its sequence block
+(rope positions offset to match); weights gathered over fsdp at use;
+heads, ffn and vocab split over tp, with the tp collectives around each
+split product, the embedding and the cross entropy. ``attn_impl="ring"``
+(ring attention over sp, nanotpu's ``"ring"``) needs one. nanotpu's
+``"ring_manual"`` belongs to its pipeline, not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from torch.utils.checkpoint import (
 from nanotpu_torch import resolve_device
 from nanotpu_torch.models.quant import QArray, embedding_lookup, matmul
 from nanotpu_torch.ops.attention import NEG_INF, flash_attention
+from nanotpu_torch.parallel.ring_attention import ring_attention
 from nanotpu_torch.tree import leaves
 
 
@@ -43,7 +52,8 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    #: "dense" (einsum chain) or "flash" (the CUDA kernel)
+    #: "dense" (einsum chain), "flash" (the CUDA kernel) or "ring" (ring
+    #: attention over a mesh's sp axis, each block through the kernel)
     attn_impl: str = "dense"
     remat: bool = False
     #: "full" recomputes the whole layer in backward; "dots" saves the
@@ -179,15 +189,25 @@ def _dense_attention(q, k, v, causal: bool = True):
 
 
 def attention(params: dict, x: torch.Tensor, cfg: LlamaConfig,
-              cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+              cos: torch.Tensor, sin: torch.Tensor, shard=None) -> torch.Tensor:
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(x, params["wq"]).reshape(B, S, H, hd)
-    k = linear(x, params["wk"]).reshape(B, S, KV, hd)
-    v = linear(x, params["wv"]).reshape(B, S, KV, hd)
+    hd = cfg.head_dim
+    if shard is not None:
+        x = shard.tp_in(x)
+    # heads from the weights' widths: this rank's share of them under tp
+    q = linear(x, params["wq"]).reshape(B, S, -1, hd)
+    k = linear(x, params["wk"]).reshape(B, S, -1, hd)
+    v = linear(x, params["wv"]).reshape(B, S, -1, hd)
+    H, KV = q.shape[2], k.shape[2]
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if cfg.attn_impl == "flash":
+    if cfg.attn_impl == "ring":
+        if shard is None:
+            raise ValueError("attn_impl 'ring' runs on a mesh: "
+                             "build_train_step(..., mesh=...)")
+        # k/v stay at KV heads: each hop of the ring moves H/KV x fewer bytes
+        out = ring_attention(q, k, v, shard.group["sp"], causal=True)
+    elif cfg.attn_impl == "flash":
         # GQA-native kernel: k/v stay at kv-head granularity
         out = flash_attention(q, k, v, causal=True)
     elif cfg.attn_impl == "dense":
@@ -197,21 +217,26 @@ def attention(params: dict, x: torch.Tensor, cfg: LlamaConfig,
         out = _dense_attention(q, k, v, causal=True)
     else:
         raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported")
-    return linear(out.reshape(B, S, H * hd), params["wo"])
+    out = linear(out.reshape(B, S, H * hd), params["wo"])
+    return out if shard is None else shard.tp_out(out)
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, shard=None) -> torch.Tensor:
     """SwiGLU."""
-    return linear(
+    if shard is not None:
+        x = shard.tp_in(x)
+    out = linear(
         F.silu(linear(x, params["w_gate"])) * linear(x, params["w_up"]),
         params["w_down"],
     )
+    return out if shard is None else shard.tp_out(out)
 
 
 def decoder_layer(params: dict, x: torch.Tensor, cfg: LlamaConfig,
-                  cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    x = x + attention(params["attn"], rms_norm(x, params["attn_norm"], cfg.norm_eps), cfg, cos, sin)
-    x = x + mlp(params["mlp"], rms_norm(x, params["mlp_norm"], cfg.norm_eps))
+                  cos: torch.Tensor, sin: torch.Tensor,
+                  shard=None) -> torch.Tensor:
+    x = x + attention(params["attn"], rms_norm(x, params["attn_norm"], cfg.norm_eps), cfg, cos, sin, shard)
+    x = x + mlp(params["mlp"], rms_norm(x, params["mlp_norm"], cfg.norm_eps), shard)
     return x
 
 
@@ -241,8 +266,8 @@ def _remat_layer(cfg: LlamaConfig):
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
 
-    def layer(params, x, cfg, cos, sin):
-        return checkpoint(decoder_layer, params, x, cfg, cos, sin,
+    def layer(params, x, cfg, cos, sin, shard=None):
+        return checkpoint(decoder_layer, params, x, cfg, cos, sin, shard,
                           use_reentrant=False, preserve_rng_state=False,
                           **kw)
 
@@ -250,16 +275,27 @@ def _remat_layer(cfg: LlamaConfig):
 
 
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
-                  positions: torch.Tensor | None = None) -> torch.Tensor:
-    """tokens [B, S] int -> final-norm hidden states [B, S, D]."""
+                  positions: torch.Tensor | None = None,
+                  shard=None) -> torch.Tensor:
+    """tokens [B, S] int -> final-norm hidden states [B, S, D]. With
+    ``shard``, tokens are this rank's sequence block over sp, at positions
+    from ``rank * S`` unless ``positions`` are given."""
     S = tokens.shape[1]
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        start = 0 if shard is None else shard.rank["sp"] * S
+        positions = torch.arange(start, start + S, dtype=torch.int32,
+                                 device=tokens.device)
     cos, sin = rope_freqs(cfg, positions)
-    x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
+    if shard is None:
+        x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
+    else:
+        x = shard.embed(shard.use(params["embed"], shard.specs["embed"]),
+                        tokens)
     layer_fn = _remat_layer(cfg) if cfg.remat else decoder_layer
-    for layer_params in params["layers"]:
-        x = layer_fn(layer_params, x, cfg, cos, sin)
+    for i, layer_params in enumerate(params["layers"]):
+        if shard is not None:  # ZeRO-3: each layer's weights gathered here
+            layer_params = shard.use(layer_params, shard.specs["layers"][i])
+        x = layer_fn(layer_params, x, cfg, cos, sin, shard)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -277,37 +313,55 @@ CE_CHUNK = 256
 
 
 def _chunk_nll(lm_head: torch.Tensor, h: torch.Tensor,
-               targets: torch.Tensor) -> torch.Tensor:
-    """Summed next-token NLL of one hidden-state chunk (f32)."""
+               targets: torch.Tensor, shard=None) -> torch.Tensor:
+    """Summed next-token NLL of one hidden-state chunk (f32); with
+    ``shard``, over the vocab split of ``lm_head`` across tp."""
+    if shard is not None:
+        logits = linear(shard.tp_in(h), lm_head).float()
+        return shard.nll_sum(logits.reshape(-1, logits.shape[-1]),
+                             targets.reshape(-1))
     logits = linear(h, lm_head).float()
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1).long(), reduction="sum")
 
 
-def next_token_nll(lm_head, x: torch.Tensor,
-                   targets: torch.Tensor) -> torch.Tensor:
+def next_token_nll(lm_head, x: torch.Tensor, targets: torch.Tensor,
+                   shard=None) -> torch.Tensor:
     """Mean NLL of ``targets [B, S]`` under the logits ``x @ lm_head``, in
     sequence chunks of CE_CHUNK (each under a non-reentrant checkpoint,
     without the RNG stash, as in :func:`_remat_layer`) when the length
-    divides, in one piece otherwise."""
+    divides, in one piece otherwise. With ``shard``, this rank's share of
+    the mean over the global batch: its sum over the tokens of every data
+    shard (``lm_head`` gathered over fsdp)."""
     B, S = targets.shape
+    count = B * S
+    if shard is not None:
+        lm_head = shard.use(lm_head, shard.specs["lm_head"])
+        count *= shard.token_shards()
     if S <= CE_CHUNK or S % CE_CHUNK:
-        return _chunk_nll(lm_head, x, targets) / (B * S)
+        return _chunk_nll(lm_head, x, targets, shard) / count
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, S, CE_CHUNK):
         total = total + checkpoint(
             _chunk_nll, lm_head, x[:, i:i + CE_CHUNK],
-            targets[:, i:i + CE_CHUNK], use_reentrant=False,
+            targets[:, i:i + CE_CHUNK], shard, use_reentrant=False,
             preserve_rng_state=False,
         )
-    return total / (B * S)
+    return total / count
 
 
-def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            shard=None) -> torch.Tensor:
     """Next-token cross entropy over tokens[:, :-1] -> tokens[:, 1:]
-    (:func:`next_token_nll`)."""
-    x = hidden_states(params, tokens[:, :-1], cfg)
-    return next_token_nll(params["lm_head"], x, tokens[:, 1:])
+    (:func:`next_token_nll`). With ``shard``, ``tokens`` are this rank's
+    batch rows and it takes its sequence block of both over sp; the
+    result is its share of the global mean, which sums over the data axes
+    to the whole."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if shard is not None:
+        inputs, targets = shard.seq_block(inputs), shard.seq_block(targets)
+    x = hidden_states(params, inputs, cfg, shard=shard)
+    return next_token_nll(params["lm_head"], x, targets, shard)
 
 
 def param_count(params) -> int:

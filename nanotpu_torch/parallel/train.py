@@ -11,12 +11,22 @@ One step a call runs eagerly. ``n_fused`` steps a call (``--fuse-steps``,
 nanotpu's ``lax.scan`` over a token block) replay one step captured as a
 CUDA graph on a card (:class:`GraphedTrainStep`), and run the same body
 eagerly on the CPU. ``--profile-dir`` traces the steady-state calls with
-``torch.profiler``. The mesh of nanotpu's step (dp, fsdp, tp, ep, sp, pp)
-is not ported: the CLI refuses its flags.
+``torch.profiler``.
+
+On a mesh (``build_train_step(..., mesh=...)``; the CLI's ``--dp --fsdp
+--tp --sp`` in a job of several processes, :mod:`.distributed`) the state
+is placed as DTensors by nanotpu's PartitionSpecs (:func:`place_state`),
+and each rank runs the model on its shards (:class:`.mesh.Shards`), sums
+the gradients over the data axes each parameter is not split on, clips by
+the global norm and updates its shards in place. nanotpu's ``ep``, ``pp``
+and ``--microbatches`` are not ported: the CLI refuses them.
 
 Run:  python -m nanotpu_torch.parallel.train --preset flagship --attn flash
       --seq 2049 --batch 8 --data markov --steps 24 --fuse-steps 8
       (one CUDA card)
+      JOB_COMPLETION_INDEX=i GANG_SIZE=4 COORDINATOR_SERVICE=host:port \
+      python -m nanotpu_torch.parallel.train --fsdp 2 --tp 2 ...
+      (one process a card, i = 0..3)
 """
 
 from __future__ import annotations
@@ -31,10 +41,25 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from nanotpu_torch import resolve_device
 from nanotpu_torch.models import llama, mixtral
 from nanotpu_torch.ops import attention
+from nanotpu_torch.parallel import distributed
+from nanotpu_torch.parallel.mesh import (
+    BATCH_SPEC,
+    P,
+    Shards,
+    check_divisibility,
+    llama_param_specs,
+    local,
+    make_mesh,
+    mesh_size_error,
+    placements_for,
+    spec_leaves,
+)
 from nanotpu_torch.tree import leaves, map_tree
 
 log = logging.getLogger("nanotpu_torch.train")
@@ -76,15 +101,17 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads, opt_state: dict, params):
+    def update(self, grads, opt_state: dict, params, norm=None):
         """Apply one step to ``params`` and ``opt_state`` in place, from
         ``grads`` (the parameters' leaves' gradients, in order); returns
-        both. Nothing leaves the device: the count, the bias corrections
-        and the clip decision are tensors, so a captured step replays
-        every one of them."""
+        both. ``norm`` is the gradients' global norm, taken from ``grads``
+        unless given (a mesh's, over every shard). Nothing leaves the
+        device: the count, the bias corrections and the clip decision are
+        tensors, so a captured step replays every one of them."""
         ps, mus, nus = leaves(params), leaves(opt_state["mu"]), leaves(opt_state["nu"])
         grads = list(grads)
-        norm = torch.stack([(g.float() ** 2).sum() for g in grads]).sum().sqrt()
+        if norm is None:
+            norm = torch.stack([(g.float() ** 2).sum() for g in grads]).sum().sqrt()
         keep = norm < self.max_norm
         count = opt_state["count"]
         count.add_(1)
@@ -140,15 +167,27 @@ def init_train_state(generator: torch.Generator, cfg, optimizer: AdamW,
 
 def build_train_step(
     cfg, optimizer: AdamW, loss_fn: Callable | None = None, n_fused: int = 1,
+    *, mesh=None, param_specs=None,
 ) -> Callable[[TrainState, torch.Tensor], tuple[TrainState, torch.Tensor]]:
     """(state, tokens) -> (state, loss), nanotpu's signature. With
     ``n_fused == 1``, tokens [B, S+1] and one eager optimizer step; with
     ``n_fused > 1``, tokens [n_fused, B, S+1] and that many steps in one
     call (:class:`FusedTrainStep`), returning the last step's loss. The
     state's tensors are updated in place; the loss is detached and stays
-    on the device."""
+    on the device.
+
+    With ``mesh`` (any size, one included) the step is the sharded one,
+    :func:`mesh_train_step`, on a state from :func:`place_state`."""
     if n_fused < 1:
         raise ValueError(f"n_fused must be at least 1, not {n_fused}")
+    if mesh is not None:
+        if n_fused != 1:
+            raise ValueError("fused steps on a mesh are not ported yet")
+        if loss_fn not in (None, llama.loss_fn):
+            raise ValueError("a mesh trains the Llama loss only: Mixtral on "
+                             "a mesh is not ported yet")
+        return mesh_train_step(cfg, optimizer, mesh,
+                               param_specs or llama_param_specs(cfg))
     loss_fn = loss_fn or llama.loss_fn
 
     def body(params, opt_state, tokens: torch.Tensor) -> torch.Tensor:
@@ -169,6 +208,59 @@ def build_train_step(
         return TrainState(state.params, state.opt_state, state.step + 1), loss
 
     return step_fn
+
+
+def mesh_train_step(cfg, optimizer: AdamW, mesh, specs):
+    """(state, tokens [B, S+1]) -> (state, loss) on ``mesh``: every process
+    passes the same global batch and keeps its rows by BATCH_SPEC; the
+    model runs on this rank's shards; each gradient sums over the data
+    axes its parameter is not split on (fsdp's by the reduce-scatter of
+    the gather at use); AdamW clips by the norm of the whole gradient tree
+    and updates the local shards in place, so every DTensor keeps its
+    placements. The loss returned is the global batch's, on every rank."""
+    shards = Shards(mesh, specs)
+    batch_placements = placements_for(mesh, BATCH_SPEC, 2)
+
+    def step_fn(state: TrainState, tokens: torch.Tensor):
+        rows_split = shards.size["dp"] * shards.size["fsdp"]
+        if tokens.shape[0] % rows_split:
+            raise ValueError(f"batch {tokens.shape[0]} does not split over "
+                             f"dp*fsdp = {rows_split}")
+        params, opt_state = local(state.params), local(state.opt_state)
+        ps, flat_specs = leaves(params), spec_leaves(specs, params)
+        for p in ps:
+            p.requires_grad_(True)
+        rows = distribute_tensor(tokens, mesh, batch_placements,
+                                 src_data_rank=None).to_local()
+        loss = llama.loss_fn(params, rows, cfg, shard=shards)
+        grads = shards.reduce_grads(torch.autograd.grad(loss, ps), flat_specs)
+        optimizer.update(grads, opt_state, params,
+                         norm=shards.global_norm(grads, flat_specs))
+        return (TrainState(state.params, state.opt_state, state.step + 1),
+                shards.sum_over_data(loss.detach()))
+
+    return step_fn
+
+
+def place_state(state: TrainState, cfg, mesh,
+                param_specs=None) -> TrainState:
+    """``state`` (whole tensors, the same on every process) as DTensors on
+    ``mesh``: parameters by spec (Llama's unless given), each AdamW moment
+    placed like its parameter, the count replicated. Process 0's tensors
+    are scattered."""
+    specs = param_specs or llama_param_specs(cfg)
+
+    def put(t, spec):
+        return distribute_tensor(t.detach(), mesh,
+                                 placements_for(mesh, spec, t.dim()))
+
+    opt = state.opt_state
+    return TrainState(
+        map_tree(put, state.params, specs),
+        {"count": put(opt["count"], P()),
+         "mu": map_tree(put, opt["mu"], specs),
+         "nu": map_tree(put, opt["nu"], specs)},
+        state.step)
 
 
 #: the kernel wrappers whose host-side ``launches`` a graphed step keeps
@@ -301,24 +393,37 @@ def _ckpt_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank (a collective), a plain tensor
+    as it is; detached."""
+    with torch.no_grad():
+        return t.full_tensor() if isinstance(t, DTensor) else t.detach()
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState) -> None:
     """``<ckpt_dir>/step_<N>/state.pt`` with torch.save, written to a
-    temporary name first so a crash leaves no half-written checkpoint."""
-    path = _ckpt_path(ckpt_dir, state.step)
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, f"state.pt.{os.getpid()}.tmp")
+    temporary name first so a crash leaves no half-written checkpoint. A
+    state on a mesh is gathered whole (every process calls this) and
+    process 0 writes it."""
     blob = {
-        "params": map_tree(lambda t: t.detach(), state.params),
-        "opt_state": state.opt_state,
+        "params": map_tree(_whole, state.params),
+        "opt_state": map_tree(_whole, state.opt_state),
         "step": state.step,
     }
-    torch.save(blob, tmp)
-    os.replace(tmp, os.path.join(path, "state.pt"))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        path = _ckpt_path(ckpt_dir, state.step)
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, f"state.pt.{os.getpid()}.tmp")
+        torch.save(blob, tmp)
+        os.replace(tmp, os.path.join(path, "state.pt"))
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def restore_checkpoint(ckpt_dir: str, like: TrainState) -> TrainState | None:
-    """The newest ``step_<N>`` under ``ckpt_dir``, placed on the device and
-    in the dtypes of ``like``'s leaves; None when there is none."""
+    """The newest ``step_<N>`` under ``ckpt_dir``, placed on the device, in
+    the dtypes and (for DTensors) on the mesh and placements of ``like``'s
+    leaves; None when there is none."""
     steps = []
     if os.path.isdir(ckpt_dir):
         for name in os.listdir(ckpt_dir):
@@ -331,16 +436,17 @@ def restore_checkpoint(ckpt_dir: str, like: TrainState) -> TrainState | None:
                       map_location="cpu", weights_only=True)
 
     def place(saved, want):
-        return saved.to(device=want.device, dtype=want.dtype)
+        t = saved.to(device=want.device, dtype=want.dtype)
+        if isinstance(want, DTensor):
+            return distribute_tensor(t, want.device_mesh, want.placements)
+        return t.requires_grad_(want.requires_grad)
 
     params = map_tree(place, blob["params"], like.params)
-    for p in leaves(params):
-        p.requires_grad_(True)
     opt = like.opt_state
     # a checkpoint written before the count moved to the device holds an int
     count = torch.as_tensor(blob["opt_state"]["count"], dtype=torch.int32)
     opt_state = {
-        "count": count.to(opt["count"].device),
+        "count": place(count, opt["count"]),
         "mu": map_tree(place, blob["opt_state"]["mu"], opt["mu"]),
         "nu": map_tree(place, blob["opt_state"]["nu"], opt["nu"]),
     }
@@ -379,14 +485,29 @@ _PRESETS = {
 }
 
 #: flags of nanotpu's trainer that the port refuses, with their idle values
-_NOT_PORTED = {"dp": (0, 1), "fsdp": (1,), "tp": (1,), "ep": (1,),
-               "sp": (1,), "pp": (1,), "microbatches": (0,)}
+_NOT_PORTED = {"ep": (1,), "pp": (1,), "microbatches": (0,)}
+
+
+def _auto_mesh_factors(n: int, model: str) -> dict[str, int]:
+    """nanotpu's default factorization of the device count: MoE prefers an
+    ep axis, dense prefers fsdp x tp."""
+    if model == "mixtral":
+        ep = 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+        return {"dp": n // ep, "ep": ep}
+    for tp in (4, 2, 1):
+        if n % tp:
+            continue
+        rest = n // tp
+        for fsdp in (4, 2, 1):
+            if rest % fsdp == 0:
+                return {"dp": rest // fsdp, "fsdp": fsdp, "tp": tp}
+    raise AssertionError("unreachable: tp=1/fsdp=1 divides any n")
 
 
 def _parser():
     import argparse
 
-    p = argparse.ArgumentParser(description="nanotpu_torch trainer (one device)")
+    p = argparse.ArgumentParser(description="nanotpu_torch trainer")
     p.add_argument("--model", choices=["llama", "mixtral"], default="llama")
     p.add_argument("--preset", default="tiny")
     p.add_argument("--steps", type=int, default=10)
@@ -394,11 +515,18 @@ def _parser():
     p.add_argument("--seq", type=int, default=0,
                    help="0 = min(preset max_seq_len, 512); the model sees "
                         "seq-1 tokens after the loss shift")
-    for flag in ("dp", "fsdp", "tp", "ep", "sp", "pp", "microbatches"):
+    p.add_argument("--dp", type=int, default=0,
+                   help="0 = auto factorize the processes")
+    p.add_argument("--fsdp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1,
+                   help=">1 switches attention to the sp ring")
+    for flag in ("ep", "pp", "microbatches"):
         p.add_argument(f"--{flag}", type=int, default=_NOT_PORTED[flag][0],
-                       help="mesh flag of nanotpu's trainer: not ported yet")
-    p.add_argument("--attn", choices=["dense", "flash"], default="",
-                   help="attention: flash = the CUDA kernels")
+                       help="flag of nanotpu's trainer: not ported yet")
+    p.add_argument("--attn", choices=["dense", "flash", "ring"], default="",
+                   help="attention: flash = the CUDA kernels; ring (over sp, "
+                        "each block through them) is implied by --sp")
     p.add_argument("--remat", action="store_true",
                    help="recompute layer activations in backward")
     p.add_argument("--remat-policy", choices=["full", "dots"], default="full",
@@ -485,15 +613,29 @@ def _sync(device: torch.device) -> None:
 
 def run(argv: list[str] | None = None) -> dict:
     """Parse ``argv`` and train. Returns the logged (step, loss) pairs,
-    steady-state tokens/s (None with one call), the device, the final
-    state and the step function (``FusedTrainStep`` with
-    ``--fuse-steps`` > 1)."""
+    steady-state tokens/s (None with one call), the device, the mesh's
+    axis sizes, the final state and the step function (``FusedTrainStep``
+    with ``--fuse-steps`` > 1).
+
+    A process of a gang (:func:`.distributed.process_info_from_env`) joins
+    its job first and leaves it at the end; a job of one process trains
+    with the plain step."""
     parser = _parser()
     args = parser.parse_args(argv)
     for flag, idle in _NOT_PORTED.items():
         if getattr(args, flag) not in idle:
             parser.error(f"--{flag.replace('_', '-')} is not ported yet: the "
-                         "port trains on one device")
+                         "port has no pipeline or expert parallelism")
+    device = resolve_device(args.device)
+    joined = distributed.initialize(device=device)
+    try:
+        return _run(parser, args, distributed.local_device(device))
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(parser, args, device: torch.device) -> dict:
     fuse = max(1, args.fuse_steps)
     if args.steps % fuse:
         parser.error(f"--steps {args.steps} must be a multiple of "
@@ -501,10 +643,15 @@ def run(argv: list[str] | None = None) -> dict:
     key = (args.model, args.preset)
     if key not in _PRESETS:
         parser.error(f"no preset {key}; have {sorted(_PRESETS)}")
-    device = resolve_device(args.device)
+    if args.sp > 1 and args.attn and args.attn != "ring":
+        parser.error(
+            f"--attn {args.attn} conflicts with --sp {args.sp}: sequence "
+            "parallelism requires the ring implementation")
     preset = dict(_PRESETS[key])
     if args.attn:
         preset["attn_impl"] = args.attn
+    if args.sp > 1:
+        preset["attn_impl"] = "ring"
     if args.remat:
         if args.model != "llama":
             parser.error("--remat is wired for the dense llama stack only")
@@ -516,10 +663,60 @@ def run(argv: list[str] | None = None) -> dict:
     else:
         cfg = mixtral.MixtralConfig(**preset)
         loss, init = mixtral.loss_fn, mixtral.init_params
-    batch = args.batch or 2
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.dp or args.fsdp > 1 or args.tp > 1 or args.sp > 1:
+        # --dp 0 with explicit parallelism flags: dp absorbs the remainder
+        denom = args.fsdp * args.tp * args.sp
+        if world % denom:
+            parser.error(f"fsdp*tp*ep*sp*pp={denom} does not divide {world} "
+                         "devices")
+        factors = {"dp": args.dp or world // denom, "fsdp": args.fsdp,
+                   "tp": args.tp, "sp": args.sp}
+    else:
+        factors = _auto_mesh_factors(world, args.model)
+    err = mesh_size_error(**factors, world=world)
+    if err:
+        parser.error(err)
+    mesh = None
+    if world > 1:
+        if args.model != "llama":
+            parser.error("--model mixtral on a mesh of more than one device "
+                         "is not ported yet")
+        if fuse > 1:
+            parser.error("--fuse-steps > 1 on a mesh of more than one device "
+                         "is not ported yet")
+        mesh = make_mesh(**factors, device=device)
+        try:
+            check_divisibility(cfg, mesh)
+        except ValueError as e:
+            parser.error(str(e))
+    elif cfg.attn_impl == "ring":
+        parser.error("--attn ring runs over the sp axis of a mesh: a job of "
+                     "more than one process")
+    data_shards = factors["dp"] * factors.get("fsdp", 1)
+    batch = args.batch or max(2, data_shards)
+    rounded = -(-batch // data_shards) * data_shards
+    if rounded != batch:
+        log.warning("--batch %d rounded up to %d (must split into %d data "
+                    "shards)", batch, rounded, data_shards)
+        batch = rounded
     seq = args.seq or min(cfg.max_seq_len, 512)
-    log.info("device %s | %s/%s | batch=%d seq=%d attn=%s", device, *key,
-             batch, seq, cfg.attn_impl)
+    if args.sp > 1:
+        # the model sees seq-1 tokens after the loss shift; keep that
+        # divisible by sp for the ring's equal sequence shards
+        if seq - 1 < args.sp:
+            parser.error(
+                f"--seq {seq} too short for --sp {args.sp}: the model sees "
+                f"seq-1 tokens and needs at least one per sequence shard")
+        shrunk = seq - (seq - 1) % args.sp
+        if args.seq and shrunk != args.seq:
+            log.warning("--seq %d shrunk to %d (seq-1 must divide into %d "
+                        "sequence shards)", args.seq, shrunk, args.sp)
+        seq = shrunk
+    log.info("device %s | mesh %s | %s/%s | batch=%d seq=%d attn=%s", device,
+             factors if mesh is not None else None, *key, batch, seq,
+             cfg.attn_impl)
 
     optimizer = make_optimizer(
         mu_dtype=torch.bfloat16 if args.bf16_momentum else None)
@@ -527,12 +724,15 @@ def run(argv: list[str] | None = None) -> dict:
         torch.Generator(device=device).manual_seed(args.seed), cfg, optimizer,
         device=device, init_fn=init)
     log.info("params %d", llama.param_count(state.params))
+    if mesh is not None:
+        state = place_state(state, cfg, mesh)
     if args.checkpoint_dir:
         restored = restore_checkpoint(args.checkpoint_dir, state)
         if restored is not None:
             state = restored
             log.info("resumed from step %d", state.step)
-    step_fn = build_train_step(cfg, optimizer, loss_fn=loss, n_fused=fuse)
+    step_fn = build_train_step(cfg, optimizer, loss_fn=loss, n_fused=fuse,
+                               mesh=mesh)
 
     # every chunk of gen_chunk steps' batches is made in one go on the
     # device, a whole number of calls; file data uses a fixed chunk so that
@@ -614,7 +814,8 @@ def run(argv: list[str] | None = None) -> dict:
         save_checkpoint(args.checkpoint_dir, state)
     return {"losses": losses.logged, "tok_s": tok_s, "batch": batch,
             "seq": seq, "device": str(device), "cfg": cfg, "state": state,
-            "steady_s": t_end - t0, "step_fn": step_fn}
+            "steady_s": t_end - t0, "step_fn": step_fn,
+            "mesh": factors if mesh is not None else None}
 
 
 def main(argv: list[str] | None = None) -> int:

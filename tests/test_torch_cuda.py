@@ -969,6 +969,103 @@ def test_capture_survives_a_dead_graph_awaiting_collection(card):
     assert step.graphed.replays == 2 and int(state.opt_state["count"]) == 4
 
 
+# -- ring attention's body on one card ----------------------------------------
+
+#: the ring's bf16 gradients: TOL plus bf16's unit roundoff (2^-8) for each
+#: rounding the ring adds to a gradient: 4 blocks' gradients rounded to
+#: bf16 and 3 sums in bf16 (nanotpu's ring rounds and sums the same way)
+_RING_TOL = TOL[torch.bfloat16] + 7 * 2**-8
+
+def _ring_all_ranks(q, k, v, sp):
+    """``chip_smoke.ring_all_ranks``: ring_attention's loop for each of
+    ``sp`` virtual ranks; the whole (out, lse)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.ring_all_ranks(q, k, v, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "two_pass"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+def test_ring_body_matches_whole_sequence_flash(card, monkeypatch, path,
+                                                dtype, D):
+    """S=512 over 4 virtual ranks (blocks of 128): out and q/k/v gradients
+    of the ring's blocks, merged, against flash over the whole sequence;
+    10 forward launches and 10 backward (fused, or dq and dk/dv) for the
+    10 visible blocks. The merge hands each block's backward a non-zero
+    lse cotangent. bf16 gradients: against the plain backward at the
+    ring's own out and lse to _RING_TOL, and against flash's to TOL +
+    _RING_TOL (each of the two may lie that far from the exact gradient)."""
+    if path == "two_pass":
+        monkeypatch.setattr(att, "FUSED_BWD_MAX_S", 0)
+    gen = torch.Generator(device=card).manual_seed(D)
+    q, k, v = (torch.randn((2, 512, h, D), generator=gen, device=card)
+               .to(dtype).requires_grad_(True) for h in (8, 2, 2))
+    dout = torch.randn(q.shape, generator=gen, device=card).to(dtype)
+    before = [f.launches for f in (flash_attention, att.flash_bwd_fused,
+                                   att.flash_bwd_dq, att.flash_bwd_dkv)]
+    out, lse = _ring_all_ranks(q, k, v, 4)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (flash_attention, att.flash_bwd_fused,
+                                  att.flash_bwd_dq, att.flash_bwd_dkv)]
+    want_n = [10, 10, 0, 0] if path == "fused" else [10, 0, 10, 10]
+    assert [a - b for a, b in zip(after, before)] == want_n
+    ref = att.flash_attention_lse(q, k, v, True)[0]
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    assert _rel_err(out, ref) <= TOL[dtype]
+    plain = att.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                  lse, dout.float(), True)
+    for a, b, c in zip(got, want, plain):
+        if dtype == torch.bfloat16:
+            assert _row_err(a, c) <= _RING_TOL
+            assert _row_err(a, b) <= TOL[dtype] + _RING_TOL
+        else:
+            assert _rel_err(a, b) <= TOL[dtype]
+            assert _rel_err(a, c) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+def test_noncausal_lse_forward_at_2048(card, dtype, D):
+    """The forward of a ring's past blocks: non-causal, with lse, at the
+    training flagship's block length."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn((1, 2048, h, D), generator=gen, device=card)
+               .to(dtype) for h in (16 * 64 // D, 4 * 64 // D, 4 * 64 // D))
+    out, lse = att.flash_attention_lse(q, k, v, False)
+    ref_out, ref_lse = attention_lse_ref(q.float(), k.float(), v.float(), False)
+    assert (out.float() - ref_out).abs().max().item() <= TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "two_pass"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_cotangent_backward_at_2048(card, monkeypatch, path, causal):
+    """The backward kernels with D - g_lse at S=2048 (bf16, 16/4 heads of
+    64): q/k/v gradients against the plain backward given the same lse
+    cotangent."""
+    if path == "two_pass":
+        monkeypatch.setattr(att, "FUSED_BWD_MAX_S", 0)
+    q, k, v, out, lse, dout = _bwd_inputs(card, torch.bfloat16, 1, 2048, 16,
+                                          4, 64, causal, 13)
+    g_lse = torch.randn(lse.shape, device=card,
+                        generator=torch.Generator(device=card).manual_seed(14))
+    got = att.flash_backward(q, k, v, out, lse, dout, causal, g_lse=g_lse)
+    want = att.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                 lse, dout.float(), causal, g_lse=g_lse)
+    for a, b in zip(got, want):
+        assert _row_err(a, b) <= TOL[torch.bfloat16]
+
+
 @pytest.mark.cuda
 def test_uncapturable_train_step_raises(card):
     """A step with a host sync in its loss captures nothing: the capture

@@ -235,8 +235,9 @@ def test_cli_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,want", [
-    (["--tp", "2"], "not ported"), (["--dp", "2"], "not ported"),
-    (["--sp", "2"], "not ported"), (["--pp", "2"], "not ported"),
+    (["--tp", "2"], "does not divide 1 devices"),
+    (["--dp", "2"], "mesh 2x1x1x1x1x1 needs 2 devices, have 1"),
+    (["--sp", "2"], "does not divide 1 devices"), (["--pp", "2"], "not ported"),
     (["--microbatches", "4"], "not ported"),
     (["--steps", "10", "--fuse-steps", "4"], "must be a multiple"),
     (["--model", "mixtral", "--remat"],
@@ -244,12 +245,50 @@ def test_cli_raises_without_a_card(monkeypatch):
     (["--preset", "nope"], "no preset"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, want, capsys):
-    """The mesh flags, which the port has not ported; what nanotpu refuses
+    """In one process, nanotpu's errors for a mesh larger than the world;
+    the pipeline flags, which the port has not ported; what nanotpu refuses
     too: a step count that is not a whole number of fused calls, ``--remat``
     on Mixtral and a preset it lacks."""
     with pytest.raises(SystemExit):
         ttrain.run(["--device", "cpu"] + argv)
     assert want in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("world,argv,want", [
+    (1, ["--ep", "2"], "--ep is not ported yet"),
+    (1, ["--attn", "flash", "--sp", "2"], "conflicts with --sp 2"),
+    (1, ["--attn", "ring"], "--attn ring runs over the sp axis of a mesh"),
+    (2, ["--tp", "3"], "fsdp*tp*ep*sp*pp=3 does not divide 2 devices"),
+    (2, ["--model", "mixtral"], "--model mixtral on a mesh of more than one"),
+    (2, ["--steps", "4", "--fuse-steps", "2"],
+     "--fuse-steps > 1 on a mesh of more than one"),
+])
+def test_cli_refuses_on_a_mesh_what_is_not_ported(monkeypatch, capsys, world,
+                                                  argv, want):
+    """What the port's mesh does not take yet, and nanotpu's own checks,
+    refused before a mesh is made (a joined group of ``world`` processes is
+    only pretended here)."""
+    monkeypatch.setattr(ttrain.dist, "is_initialized", lambda: world > 1)
+    monkeypatch.setattr(ttrain.dist, "get_world_size", lambda: world)
+    with pytest.raises(SystemExit):
+        ttrain.run(["--device", "cpu"] + argv)
+    assert want in capsys.readouterr().err
+
+
+def test_mesh_step_refuses_fused_steps_and_other_losses():
+    cfg, opt = tl.LlamaConfig.tiny(), ttrain.make_optimizer()
+    with pytest.raises(ValueError, match="fused steps on a mesh"):
+        ttrain.build_train_step(cfg, opt, n_fused=2, mesh=object())
+    with pytest.raises(ValueError, match="Mixtral on a mesh"):
+        ttrain.build_train_step(cfg, opt, loss_fn=lambda *a: None,
+                                mesh=object())
+
+
+def test_ring_attention_needs_a_mesh():
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(), attn_impl="ring")
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="runs on a mesh"):
+        tl.loss_fn(params, torch.zeros((1, 9), dtype=torch.long), cfg)
 
 
 # -- fused steps, the device step count, the profiler ------------------------
