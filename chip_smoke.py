@@ -108,6 +108,20 @@ them:
     nanotpu's specs) on the training flagship, 10 steps with flash and 10
     with ring attention over sp: losses against the plain step's from the
     same state and batches, launches exact, tokens/s of each;
+11c. pipeline phase: the GPipe pipeline (``parallel/pipeline.py``) at
+    pp=1 on a one-process NCCL mesh, the training flagship as nanotpu's
+    stacked tree, 4 microbatches, 10 steps with flash and 10 with the ring
+    in the stages (``ring_manual``): losses within 0.02 nats of the mesh
+    phase's plain step, tokens/s, peak memory, launches exact (one forward
+    and one fused backward a layer a microbatch);
+11d. mesh serving phase: ``Engine(mesh=)`` (``parallel/infer.py``) on a
+    one-process NCCL mesh against the plain engine on the same weights,
+    both graphed (the mesh engine's graphs hold NCCL collectives): the
+    serving flagship (greedy tokens equal, decode tokens/s in turns),
+    Llama-3-8B's widths at full depth (8.03 B parameters, bf16, 8 slots,
+    max_len 2048: greedy tokens equal on prompts of 64-1500 tokens, decode
+    tokens/s, the idle share, the TTFT of a lone 1024-token prompt, peak
+    memory) and the speculative engine in f32 (greedy tokens equal);
 11a. trained-target phase: the training flagship trained 480 steps on
     the Markov corpus at ``--fuse-steps 8`` (its loss must fall; beside the
     Markov floor), ``python -m nanotpu_torch.models.distill --target-ckpt
@@ -138,11 +152,13 @@ them:
     each); then int8 weights and KV cache: tokens/s, parameter bytes and
     the share of greedy tokens equal to bf16's.
 
-The last two lines are the kernel table and the device record, as JSON.
+Each phase's wall seconds are printed after the last phase. The last two
+lines are the kernel table and the device record, as JSON.
 Each path (serving, int8 serving, graphs, distill, speculative, training,
 two-pass, fused training, graphed two-pass, Mixtral's training, fused
-training, serving drive and serving rounds, the ring's two cases and the
-mesh step with flash and with the ring) counts its kernel launches
+training, serving drive and serving rounds, the ring's two cases, the
+mesh step with flash and with the ring, the pipeline with each, and the
+mesh engines: flagship, 8B and speculative) counts its kernel launches
 from 0 and reads them just after it ran; the table gives each path's count
 and their sum. A decode graph captures no flash launch, so each serving
 path's count stays exact: the forward kernel once a layer for each
@@ -989,6 +1005,47 @@ def device_profile(fn, named: tuple = ()) -> tuple:
     named_ms = sum(dev_us(e) for e in events
                    if any(n in e.key for n in named)) / 1e3
     return wall * 1e3, (busy if busy > 0 else None), top, named_ms
+
+
+def decode_only_profile(engine, prompts, n_new: int) -> dict:
+    """Decode alone, on the device's own clock: one round of ``prompts``
+    (``n_new`` tokens each) under the profiler, started with the engine
+    idle; its kernel timeline (the Chrome trace) is cut where the last
+    prefill's last flash kernel ends, and the window runs to the last
+    kernel's end. Busy is the union of the kernels' intervals in it (an
+    NCCL kernel's stream may overlap the compute stream's)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_round(engine, prompts, n_new)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                     for e in events if e.get("cat") == "kernel")
+    start = max(end for _, end, name in kernels if "flash_fwd" in name)
+    stop = max(end for _, end, _ in kernels)
+    busy, run, by_name = 0.0, None, {}
+    for lo, hi, name in kernels:
+        lo, hi = max(lo, start), min(hi, stop)
+        if hi <= lo:
+            continue
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (hi - lo) / 1e3
+        if run is None or lo > run[1]:
+            busy += 0.0 if run is None else run[1] - run[0]
+            run = [lo, hi]
+        else:
+            run[1] = max(run[1], hi)
+    busy += 0.0 if run is None else run[1] - run[0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"window_ms": (stop - start) / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / (stop - start),
+            "top": [(k, round(v, 3)) for k, v in top]}
 
 
 def measure(engine, rng, card: str) -> dict:
@@ -1934,13 +1991,15 @@ def mesh_training_phase(card: str) -> dict:
     mesh=mesh)`` on the training flagship (8 layers, B=8, S=2048, flash),
     the state placed as DTensors by nanotpu's specs (``place_state``: wq
     P(fsdp, tp) and so on), MESH_STEPS steps; then the same with
-    ``attn_impl="ring"`` (ring attention over sp of size 1). Every NCCL
-    collective of the step runs, on groups of one: the fsdp gather at use
-    and its reduce-scatter, the tp all-reduces and the vocab-parallel cross
-    entropy's, the gradient and loss all-reduces over the data axes and the
-    global norm's; the ring's exchange between ranks does not (one rank
-    sends nothing). Each run's losses must stay within TOLERANCE of the
-    plain step's from the same state on the same batches, and its launches
+    ``attn_impl="ring"`` (ring attention over sp of size 1). The step's
+    NCCL collectives run on groups of one: the tp all-reduces and the
+    vocab-parallel cross entropy's, the gradient and loss all-reduces over
+    the data axes and the global norm's; the ring's exchange between ranks
+    does not (one rank sends nothing), nor do the fsdp gather at use and
+    its reduce-scatter (the identity over an fsdp group of one, skipped
+    rather than copying every weight a step). Each run's losses must stay
+    within TOLERANCE of the plain step's from the same state on the same
+    batches, and its launches
     exact (one forward and one fused backward a layer a step); steady
     tokens/s of the plain step and of each mesh run."""
     import torch.distributed as dist
@@ -2022,6 +2081,347 @@ def mesh_training_phase(card: str) -> dict:
             del state, step
     finally:
         dist.destroy_process_group()
+    return out
+
+
+class nccl_world:
+    """A real NCCL process group of this one process (``tcp://`` on a free
+    local port) and ``make_mesh()`` over it, six axes of size 1; the group
+    is destroyed on exit."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from nanotpu_torch.parallel import mesh as tmesh
+
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+        return tmesh.make_mesh()
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+#: the serving mesh phase: rounds of SLOTS prompts of 64 tokens, this many
+#: new tokens each; the 8B widths' prompts that greedy tokens are compared
+#: on, and its lone prompt for the time to first token
+MESH_NEW, EIGHTB_PROMPT_LENS, EIGHTB_TTFT_LEN = 128, (64, 300, 900, 1500), 1024
+#: the 8B's decode-only profile: a round of this many new tokens a row
+EIGHTB_PROFILE_NEW = 64
+
+
+def mesh_engine_window(launches: dict, fn):
+    """``fn()``'s result, its flash launches counted from 0 just before and
+    read just after, added into ``launches``. ``fn`` waits for what it
+    starts, and no other engine runs meanwhile: the counts are the
+    host's."""
+    reset_launches()
+    try:
+        return fn()
+    finally:
+        for name, n in read_launches().items():
+            launches[name] = launches.get(name, 0) + n
+
+
+def mesh_serving_phase(card: str) -> dict:
+    """``Engine(mesh=)`` on a one-process NCCL mesh, each against the plain
+    engine on the same parameters, both graphed (the mesh engine's decode
+    graphs hold the NCCL collectives: the tp all-reduces and the logits'
+    all-gather, on groups of one):
+
+    * the serving flagship (bf16): greedy tokens of SLOTS x 64-token
+      prompts x MESH_NEW equal, rounds in turns (plain, mesh, mesh, plain):
+      decode tokens/s at SLOTS busy slots of each;
+    * Llama-3-8B's widths at full depth (vocab 128256, dim 4096, 32 layers,
+      32/8 heads of 128, ffn 14336, bf16, flash prefill; 8.03 B parameters
+      from a seeded generator), SLOTS slots, max_len MAX_LEN: greedy tokens
+      of prompts of EIGHTB_PROMPT_LENS tokens equal; decode tokens/s at
+      SLOTS busy slots of each, the mesh engine's device idle share over
+      decode alone (``decode_only_profile``: a profiled round's device
+      timeline after its last prefill), its time to first token of a lone
+      EIGHTB_TTFT_LEN-token prompt (median of 3), and the peak memory of
+      the phase;
+    * the speculative engine (the flagship in f32, a 2-layer truncated
+      draft, "always", K=4) on the mesh: greedy tokens equal to the plain
+      f32 engine's.
+
+    Launches: each mesh engine's, from its construction (warm-up prefill
+    included) to its last round, exact: the forward kernel once a target
+    layer for each prefill, nothing else (the draft is dense)."""
+    from nanotpu_torch.models import distill
+    from nanotpu_torch.models.llama import LlamaConfig, init_params
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.serving.engine import Engine
+    from nanotpu_torch.serving.server import serving_config
+    from nanotpu_torch.tree import leaves
+
+    out = {"launches": {}}
+    rng = np.random.default_rng(11)
+
+    def prompts_of(cfg, lens):
+        return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+    def serve(label, params, cfg, mesh, greedy_prompts, rounds, **kw):
+        """The plain and the mesh engine over ``params``: greedy tokens of
+        ``greedy_prompts`` (MESH_NEW // 4 new) and ``rounds`` decode rounds
+        in turns; the mesh engine's launches go into out["launches"]."""
+        launches = {}
+        res = {}
+        plain = warm(Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                            device="cuda", **kw))
+        try:
+            meshed = mesh_engine_window(launches, lambda: warm(Engine(
+                params, cfg, slots=SLOTS, max_len=MAX_LEN, device="cuda",
+                mesh=mesh, **kw)))
+        except BaseException:
+            plain.stop()
+            raise
+        n_prefills = 1  # the warm-up's
+        try:
+            t0 = time.perf_counter()
+            want, _ = decode_round(plain, greedy_prompts, MESH_NEW // 4)
+            got, _ = mesh_engine_window(launches, lambda: decode_round(
+                meshed, greedy_prompts, MESH_NEW // 4))
+            n_prefills += len(greedy_prompts)
+            if got != want:
+                raise AssertionError(f"{label}: Engine(mesh=) greedy tokens "
+                                     f"differ from the plain engine's")
+            tok_s = {"plain": [], "mesh": []}
+            for turn in rounds:
+                eng = meshed if turn == "mesh" else plain
+                prompts = prompts_of(cfg, [64] * SLOTS)
+                if turn == "mesh":
+                    _, rate = mesh_engine_window(
+                        launches, lambda: decode_round(eng, prompts, MESH_NEW))
+                    n_prefills += SLOTS
+                else:
+                    _, rate = decode_round(eng, prompts, MESH_NEW)
+                tok_s[turn].append(rate)
+            res.update(greedy_equal=len(got), tok_s=tok_s,
+                       drive_s=time.perf_counter() - t0,
+                       graphs=graph_record(meshed, f"{label} mesh engine"),
+                       chips=meshed.stats()["chips"])
+            graph_record(plain, f"{label} plain engine")
+            return res, meshed, plain, launches, n_prefills
+        except BaseException:
+            meshed.stop()
+            plain.stop()
+            raise
+
+    def warm(engine):
+        try:
+            engine.wait_warm()
+        except BaseException:
+            engine.stop()
+            raise
+        return engine
+
+    def check(label, launches, n_layers, n_prefills):
+        want = {**dict.fromkeys(launches, 0),
+                "flash_fwd": n_layers * n_prefills}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, want {want}")
+
+    with nccl_world() as mesh:
+        # the serving flagship, bf16
+        cfg = serving_config("flagship", MAX_LEN)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        res, meshed, plain, launches, n = serve(
+            "mesh serving (flagship)", params, cfg, mesh,
+            prompts_of(cfg, PROMPT_LENS), ("plain", "mesh", "mesh", "plain"))
+        meshed.stop()
+        plain.stop()
+        check("mesh serving (flagship)", launches, cfg.n_layers, n)
+        out["flagship"], out["launches"]["mesh_serving"] = res, launches
+        print(f"mesh serving (flagship, bf16, NCCL world 1) on {card}: greedy "
+              f"tokens of {res['greedy_equal']} prompts equal the plain "
+              f"engine's; decode tok/s at {SLOTS} busy slots, turns plain "
+              f"{res['tok_s']['plain']}, mesh {res['tok_s']['mesh']}; chips "
+              f"{res['chips']}; launches {launches}")
+        del params, meshed, plain
+
+        # Llama-3-8B's widths at full depth
+        cfg = LlamaConfig(**dict(train._PRESETS[("llama", "8b")],
+                                 attn_impl="flash"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(8),
+                             device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in leaves(params))
+
+        def lone(prompt):
+            req = meshed.submit(prompt, 1)
+            if not req.wait(300) or req.error:
+                raise AssertionError(f"8B TTFT request: {req.error}")
+            return req
+
+        res, meshed, plain, launches, n = serve(
+            "mesh serving (8B)", params, cfg, mesh,
+            prompts_of(cfg, EIGHTB_PROMPT_LENS), ("mesh", "plain"))
+        try:
+            prompts = prompts_of(cfg, [64] * SLOTS)
+            prof = mesh_engine_window(
+                launches, lambda: decode_only_profile(
+                    meshed, prompts, EIGHTB_PROFILE_NEW))
+            n += SLOTS
+            ttft = []
+            for _ in range(3):
+                prompt = prompts_of(cfg, [EIGHTB_TTFT_LEN])[0]
+                req = mesh_engine_window(launches, lambda: lone(prompt))
+                ttft.append(req.ttft_s * 1e3)
+                n += 1
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            meshed.stop()
+            plain.stop()
+        check("mesh serving (8B)", launches, cfg.n_layers, n)
+        res.update(n_params=n_params, init_s=init_s, peak_mem_gib=peak,
+                   ttft_1024_ms=float(np.median(ttft)), ttft_samples_ms=ttft,
+                   decode_profile=prof)
+        print(f"mesh serving (Llama-3-8B widths, {cfg.n_layers} layers, "
+              f"{n_params / 1e9:.3f} B parameters, bf16, NCCL world 1) on "
+              f"{card}: weights drawn in {init_s:.1f} s; greedy tokens of "
+              f"prompts of {EIGHTB_PROMPT_LENS} tokens equal the plain "
+              f"engine's; decode tok/s at {SLOTS} busy slots, turns mesh "
+              f"{res['tok_s']['mesh']}, plain {res['tok_s']['plain']}; "
+              f"decode alone ({SLOTS} x {EIGHTB_PROFILE_NEW} tokens under the "
+              f"profiler, after the last prefill): device window "
+              f"{prof['window_ms']:.1f} ms, busy {prof['device_busy_ms']:.1f} "
+              f"ms, idle {100 * prof['idle_share']:.1f}%; TTFT of a "
+              f"lone "
+              f"{EIGHTB_TTFT_LEN}-token prompt {res['ttft_1024_ms']:.2f} ms "
+              f"(samples {[round(x, 2) for x in ttft]}); peak memory "
+              f"{peak:.3f} GiB (both engines, one copy of the weights); top "
+              f"kernels of the decode window {prof['top']}; launches "
+              f"{launches}")
+        out["8b"], out["launches"]["mesh_serving_8b"] = res, launches
+        del params
+
+        # the speculative engine on the mesh, f32
+        cfg = dataclasses.replace(serving_config("flagship", MAX_LEN),
+                                  dtype="float32")
+        dcfg = distill.draft_config(cfg, ffn_dim=cfg.ffn_dim)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        draft = distill.init_draft(
+            torch.Generator(device="cuda").manual_seed(1), params, cfg, dcfg)
+        prompts = prompts_of(cfg, PROMPT_LENS)
+        plain = warm(Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                            device="cuda"))
+        try:
+            want, _ = decode_round(plain, prompts, NEW_TOKENS)
+        finally:
+            plain.stop()
+        launches = {}
+        spec = mesh_engine_window(launches, lambda: warm(Engine(
+            params, cfg, slots=SLOTS, max_len=MAX_LEN, device="cuda",
+            mesh=mesh, draft_params=draft, draft_cfg=dcfg,
+            spec_policy="always")))
+        try:
+            got, _ = mesh_engine_window(
+                launches, lambda: decode_round(spec, prompts, NEW_TOKENS))
+            per_cycle = spec.stats()["spec_tokens_per_cycle"]
+            graph_record(spec, "mesh speculative engine")
+        finally:
+            spec.stop()
+        check("mesh speculative", launches, cfg.n_layers, 1 + len(prompts))
+        if got != want:
+            raise AssertionError("mesh speculative: f32 greedy tokens differ "
+                                 "from the plain engine's")
+        print(f"mesh speculative (flagship f32, {dcfg.n_layers}-layer "
+              f"truncated draft, always, K=4, NCCL world 1) on {card}: greedy "
+              f"tokens of {len(prompts)} prompts equal the plain engine's; "
+              f"{per_cycle} tokens a row-cycle; launches {launches}")
+        out["speculative"] = {"tokens_per_cycle": per_cycle}
+        out["launches"]["mesh_speculative"] = launches
+    return out
+
+
+#: the pipeline phase: microbatches of the training flagship's batch, and
+#: how far its losses may part from the plain step's from the same state
+#: on the same batches
+PIPE_MICRO, PIPE_LOSS_TOL = 4, 0.02
+
+
+def pipeline_phase(card: str, plain: dict) -> dict:
+    """The GPipe pipeline at pp=1 on a one-process NCCL mesh: the training
+    flagship (8 layers, B=8, S=2048, bf16) as nanotpu's stacked tree, placed
+    by ``llama_pp_param_specs``, trained MESH_STEPS steps through
+    ``make_pipelined_loss(mesh, PIPE_MICRO)`` with flash attention and then
+    with the ring (``ring_manual`` in the stages, sp=1), from the mesh
+    phase's state on its batches: losses within PIPE_LOSS_TOL of that
+    phase's plain step (``plain``), tokens/s against it, peak memory (the
+    pipelined loss's [B, S, V] f32 logits, 2.1 GB, among it), launches
+    exact: one forward and one fused backward a layer a microbatch a
+    step."""
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import llama
+    from nanotpu_torch.parallel import pipeline as tpp
+    from nanotpu_torch.parallel import train
+
+    cfg = llama.LlamaConfig(**dict(train._PRESETS[("llama", "flagship")],
+                                   attn_impl="flash"))
+    opt = train.make_optimizer()
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(7),
+                           table, (MESH_STEPS, TRAIN_B, TRAIN_S + 1))
+    out = {"launches": {}}
+    with nccl_world() as mesh:
+        for attn in ("flash", "ring"):
+            c = dataclasses.replace(cfg, attn_impl=attn)
+            base = train.init_train_state(
+                torch.Generator(device="cuda").manual_seed(6), cfg, opt,
+                device="cuda")
+            stacked = tpp.stack_layers(base.params)
+            del base
+            specs = tpp.llama_pp_param_specs(c)
+            state = train.place_state(
+                train.TrainState(stacked, opt.init(stacked), 0), c, mesh,
+                param_specs=specs)
+            del stacked
+            step = train.build_train_step(
+                c, opt, loss_fn=tpp.make_pipelined_loss(mesh, PIPE_MICRO),
+                mesh=mesh, param_specs=specs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            losses = []
+            for i, tokens in enumerate(batches):
+                state, loss = step(state, tokens)
+                losses.append(loss)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            tok_s = ((MESH_STEPS - 1) * TRAIN_B * TRAIN_S
+                     / (time.perf_counter() - t0))
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            losses = [x.item() for x in losses]
+            diff = max(abs(a - b) for a, b in zip(losses, plain["losses"]))
+            label = f"pipeline (pp=1, M={PIPE_MICRO}, attn {attn})"
+            print(f"{label} on {card}: losses "
+                  f"{[round(x, 4) for x in losses]}, largest difference from "
+                  f"the plain step's {diff:.3g} (tol {PIPE_LOSS_TOL}); "
+                  f"{tok_s:.1f} tokens/s (plain {plain['tok_s']:.1f}); peak "
+                  f"memory {peak:.3f} GiB; launches {launches}")
+            check_train_launches(launches, cfg.n_layers * PIPE_MICRO,
+                                 MESH_STEPS, False, label)
+            if not (all(np.isfinite(losses)) and diff <= PIPE_LOSS_TOL):
+                raise AssertionError(f"{label}: losses {losses} against "
+                                     f"{plain['losses']}")
+            out[attn] = {"losses": losses, "tok_s": tok_s,
+                         "max_loss_diff": diff, "peak_mem_gib": peak}
+            out["launches"]["pipeline" if attn == "flash"
+                            else "pipeline_ring"] = launches
+            del state, step
     return out
 
 
@@ -2658,29 +3058,42 @@ def main() -> None:
         raise AssertionError(f"ptxas serialized wgmma or ignored setmaxnreg: "
                              f"{notes}")
 
-    rows = kernel_phase(card)
-    bwd = backward_phase(card)
-    ring = ring_phase(card)
-    moe_kernels = mixtral_kernel_phase(card)
-    serve = serving_phase(card)
-    parity_phase()
-    graphed = graphs_phase(card)
-    int8 = int8_serving_phase(card, serve["greedy"])
-    server_cli_phase(card)
-    spec = speculative_phase(card)
-    distill_cli_phase(card)
-    bench_phase(card)
-    trained = training_phase(card)
-    two_pass = two_pass_phase()
-    fused = fused_training_phase(card)
-    fused_two_pass = fused_two_pass_phase()
-    profile_dir_phase(card)
-    train_parity_phase()
-    meshed = mesh_training_phase(card)
-    trained_target_phase(card)
-    moe_train = mixtral_training_phase(card)
-    moe_fused = mixtral_fused_training_phase(card, moe_train["losses"])
-    moe_serve = mixtral_serving_phase(card)
+    phase_s = {}
+
+    def timed(phase, *args):
+        """``phase(*args)``, its wall seconds kept under its name."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[phase.__name__] = round(time.perf_counter() - t0, 1)
+        return out
+
+    rows = timed(kernel_phase, card)
+    bwd = timed(backward_phase, card)
+    ring = timed(ring_phase, card)
+    moe_kernels = timed(mixtral_kernel_phase, card)
+    serve = timed(serving_phase, card)
+    timed(parity_phase)
+    graphed = timed(graphs_phase, card)
+    int8 = timed(int8_serving_phase, card, serve["greedy"])
+    timed(server_cli_phase, card)
+    spec = timed(speculative_phase, card)
+    timed(distill_cli_phase, card)
+    timed(bench_phase, card)
+    trained = timed(training_phase, card)
+    two_pass = timed(two_pass_phase)
+    fused = timed(fused_training_phase, card)
+    fused_two_pass = timed(fused_two_pass_phase)
+    timed(profile_dir_phase, card)
+    timed(train_parity_phase)
+    meshed = timed(mesh_training_phase, card)
+    piped = timed(pipeline_phase, card, meshed["plain"])
+    mesh_served = timed(mesh_serving_phase, card)
+    timed(trained_target_phase, card)
+    moe_train = timed(mixtral_training_phase, card)
+    moe_fused = timed(mixtral_fused_training_phase, card, moe_train["losses"])
+    moe_serve = timed(mixtral_serving_phase, card)
+    print(f"phase wall seconds on {card}: {phase_s}; all phases "
+          f"{sum(phase_s.values()):.1f} s")
 
     # each path's launches, counted from 0 just before it ran and read just
     # after; "launches" is their sum
@@ -2694,7 +3107,8 @@ def main() -> None:
                "mixtral_fused_train": moe_fused["launches"],
                "mixtral_serving": moe_serve["launches"],
                "mixtral_rounds": moe_serve["graph_launches"],
-               **ring["launches"], **meshed["launches"]}
+               **ring["launches"], **meshed["launches"],
+               **piped["launches"], **mesh_served["launches"]}
 
     def launches(name):
         counts = {path: n[name] for path, n in by_path.items()}

@@ -13,6 +13,14 @@ A prefill into an empty cache with ``attn_impl="flash"`` runs the flash
 kernel. A Mixtral layer (a ``moe`` entry) routes a decode step (S == 1) at
 full expert capacity, so co-batched rows stay independent, and a prefill at
 the capacity factor of the full forward.
+
+``mesh=`` (:mod:`nanotpu_torch.parallel.infer`) runs the same functions on
+this rank's shards of params placed by ``place_params``: its H/tp query and
+KV/tp kv heads (the GQA ratio unchanged), the flash kernel on that head
+shard, a tp all-reduce after ``wo`` and ``w_down``, weights gathered over
+fsdp at use, the vocab-parallel embedding, and the vocab-split head's
+logits all-gathered over tp so that every rank samples the same token from
+the same generator. The cache holds the rank's kv heads only.
 """
 
 from __future__ import annotations
@@ -46,8 +54,9 @@ class KVCache(NamedTuple):
 
     @staticmethod
     def create(cfg: LlamaConfig, batch: int, max_len: int,
-               device=None) -> "KVCache":
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+               device=None, tp: int = 1) -> "KVCache":
+        """Zeroed, at one tp rank's ``n_kv_heads / tp`` heads."""
+        shape = (batch, max_len, cfg.n_kv_heads // tp, cfg.head_dim)
         device = resolve_device(device)
         return KVCache(
             k=tuple(torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
@@ -76,22 +85,72 @@ def _attend_cached(q, k_cache, v_cache, valid_len: int):
     return out.reshape(B, S, H, hd)
 
 
-def ffn(layer, x, cfg, full_capacity: bool, drop_acc=None):
+def ffn(layer, x, cfg, full_capacity: bool, drop_acc=None, shard=None):
     """The FFN half of a cached layer on x [B,S,D] (its norm included):
-    the SwiGLU MLP of a Llama layer, or the routed experts of a Mixtral
-    layer (``moe``), whose aux loss inference drops. ``full_capacity`` and
-    ``drop_acc`` go to :func:`~nanotpu_torch.models.mixtral.moe_block`."""
+    the SwiGLU MLP of a Llama layer (tp-split with ``shard``), or the routed
+    experts of a Mixtral layer (``moe``), whose aux loss inference drops.
+    ``full_capacity`` and ``drop_acc`` go to
+    :func:`~nanotpu_torch.models.mixtral.moe_block`."""
     if "moe" in layer:
         out, _aux = moe_block(
             layer["moe"], rms_norm(x, layer["moe_norm"], cfg.norm_eps), cfg,
             full_capacity=full_capacity, drop_acc=drop_acc,
         )
         return out
-    return mlp(layer["mlp"], rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+    return mlp(layer["mlp"], rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+               shard)
+
+
+def embed_rows(params, tokens, cfg, shard=None):
+    """The embedding of ``tokens`` in the model's dtype: a lookup, or with
+    ``shard`` the vocab-parallel one over the table gathered over fsdp."""
+    if shard is None:
+        return embed_lookup(params["embed"], tokens, cfg.torch_dtype)
+    table = shard.use(params["embed"], shard.specs["embed"])
+    return shard.embed(table, tokens, cfg.torch_dtype)
+
+
+def head_logits(params, x, shard=None):
+    """f32 logits of hidden states ``x`` (final norm applied) over the
+    whole vocabulary: with ``shard``, each rank's vocab slice all-gathered
+    over tp."""
+    if shard is None:
+        return linear(x, params["lm_head"]).float()
+    w = shard.use(params["lm_head"], shard.specs["lm_head"])
+    return shard.gather(linear(shard.tp_in(x), w).float(), "tp", -1)
+
+
+def project_qkv(attn, h, cfg, cos, sin, shard=None):
+    """q [B,S,H,hd], k and v [B,S,KV,hd] of normed hidden states ``h``
+    [B,S,D], rope applied to q and k; with ``shard``, this rank's heads
+    (their count read off the weights)."""
+    B, S, _ = h.shape
+    hd = cfg.head_dim
+    if shard is not None:
+        h = shard.tp_in(h)
+    q = linear(h, attn["wq"]).reshape(B, S, -1, hd)
+    k = linear(h, attn["wk"]).reshape(B, S, -1, hd)
+    v = linear(h, attn["wv"]).reshape(B, S, -1, hd)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def project_out(attn, out, shard=None):
+    """The output projection of attention ``out`` [B,S,H,hd]; with
+    ``shard``, row-parallel over tp and all-reduced."""
+    B, S = out.shape[:2]
+    o = linear(out.reshape(B, S, -1), attn["wo"])
+    return o if shard is None else shard.tp_out(o)
+
+
+def layer_params(params, i: int, shard=None):
+    """Layer ``i``'s weights, gathered over fsdp with ``shard``."""
+    layer = params["layers"][i]
+    return layer if shard is None else shard.use(layer,
+                                                 shard.specs["layers"][i])
 
 
 def _layer_with_cache(layer, x, cfg, cos, sin, k_cache, v_cache, start: int,
-                      full_prefill: bool = False, drop_acc=None):
+                      full_prefill: bool = False, drop_acc=None, shard=None):
     """One decoder layer over new tokens x [B,S,D], writing this layer's
     k/v at [start, start+S) of the cache in place. Returns x.
 
@@ -100,16 +159,12 @@ def _layer_with_cache(layer, x, cfg, cos, sin, k_cache, v_cache, start: int,
     through the flash kernel instead of attending the whole cache. A decode
     step (S == 1) of a Mixtral layer routes at full capacity; a prefill
     keeps the capacity factor over this call's B*S tokens, as ``forward``
-    does, and appends its per-token drops to ``drop_acc``."""
-    B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn = layer["attn"]
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = linear(h, attn["wq"]).reshape(B, S, H, hd)
-    k = linear(h, attn["wk"]).reshape(B, S, KV, hd)
-    v = linear(h, attn["wv"]).reshape(B, S, KV, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    does, and appends its per-token drops to ``drop_acc``. With ``shard``
+    the layer runs on this rank's heads."""
+    S = x.shape[1]
+    q, k, v = project_qkv(layer["attn"],
+                          rms_norm(x, layer["attn_norm"], cfg.norm_eps), cfg,
+                          cos, sin, shard)
     k_cache[:, start:start + S] = k
     v_cache[:, start:start + S] = v
     if full_prefill and cfg.attn_impl == "flash":
@@ -117,12 +172,14 @@ def _layer_with_cache(layer, x, cfg, cos, sin, k_cache, v_cache, start: int,
         out = flash_attention(q, k, v, causal=True)
     else:
         out = _attend_cached(q, k_cache, v_cache, start + S)
-    x = x + linear(out.reshape(B, S, H * hd), attn["wo"])
-    return x + ffn(layer, x, cfg, full_capacity=(S == 1), drop_acc=drop_acc)
+    x = x + project_out(layer["attn"], out, shard)
+    return x + ffn(layer, x, cfg, full_capacity=(S == 1), drop_acc=drop_acc,
+                   shard=shard)
 
 
 def _run(params, tokens, cfg, cache: KVCache, full_prefill: bool = False,
-         return_all: bool = False, head: bool = True, drop_acc=None):
+         return_all: bool = False, head: bool = True, drop_acc=None,
+         shard=None):
     """Shared prefill/step body: tokens [B,S] appended at cache.length.
     ``return_all`` returns logits for every fed position [B,S,V] (the
     speculative verify needs them all), else last-token logits [B,V].
@@ -130,39 +187,63 @@ def _run(params, tokens, cfg, cache: KVCache, full_prefill: bool = False,
     ``(None, cache)``: for callers that only prime the cache (a speculative
     draft's prefill), whose discarded projection can cost more than the
     shallow draft itself. ``drop_acc`` collects a Mixtral prefill's
-    per-token drops, one [B*S] vector a layer."""
+    per-token drops, one [B*S] vector a layer. ``shard`` runs it on this
+    rank's shards (local ``params``, a cache at its local heads)."""
     S = tokens.shape[1]
     start = cache.length
     positions = start + torch.arange(S, dtype=torch.int32, device=tokens.device)
     cos, sin = rope_freqs(cfg, positions)
-    x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
-    for i, layer in enumerate(params["layers"]):
+    x = embed_rows(params, tokens, cfg, shard)
+    for i in range(len(params["layers"])):
         x = _layer_with_cache(
-            layer, x, cfg, cos, sin, cache.k[i], cache.v[i], start,
-            full_prefill=full_prefill, drop_acc=drop_acc,
+            layer_params(params, i, shard), x, cfg, cos, sin, cache.k[i],
+            cache.v[i], start, full_prefill=full_prefill, drop_acc=drop_acc,
+            shard=shard,
         )
     new_cache = cache._replace(length=start + S)
     if not head:
         return None, new_cache
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     x_out = x if return_all else x[:, -1]
-    return linear(x_out, params["lm_head"]).float(), new_cache
+    return head_logits(params, x_out, shard), new_cache
+
+
+def mesh_args(params, cfg, mesh):
+    """(params, shard) for :func:`_run`: ``params`` and None without a
+    mesh; on one, the local shards of a tree placed by
+    :func:`nanotpu_torch.parallel.infer.place_params` and their
+    :class:`~nanotpu_torch.parallel.mesh.Shards`."""
+    if mesh is None:
+        return params, None
+    from nanotpu_torch.parallel.infer import on_mesh
+
+    return on_mesh(params, cfg, mesh)
 
 
 def prefill(params, prompt: torch.Tensor, cfg: LlamaConfig, max_len: int,
-            head: bool = True):
+            head: bool = True, mesh=None, shard=None):
     """prompt [B,S] -> (last-token logits [B,V], primed cache). The cache
     starts empty, so attention is causal self-attention over the prompt,
     through the flash kernel when ``attn_impl="flash"``. ``head=False``
-    returns (None, cache)."""
-    cache = KVCache.create(cfg, prompt.shape[0], max_len, device=prompt.device)
-    return _run(params, prompt, cfg, cache, full_prefill=True, head=head)
+    returns (None, cache). ``mesh`` runs it on the local shards of
+    ``params`` placed by ``place_params`` (``shard``: on local shards
+    already), each rank's cache at its kv heads."""
+    if mesh is not None:
+        params, shard = mesh_args(params, cfg, mesh)
+    tp = 1 if shard is None else shard.size["tp"]
+    cache = KVCache.create(cfg, prompt.shape[0], max_len, device=prompt.device,
+                           tp=tp)
+    return _run(params, prompt, cfg, cache, full_prefill=True, head=head,
+                shard=shard)
 
 
 def decode_step(params, token: torch.Tensor, cfg: LlamaConfig,
-                cache: KVCache):
-    """token [B] -> (logits [B,V], cache advanced by one)."""
-    return _run(params, token[:, None], cfg, cache)
+                cache: KVCache, mesh=None, shard=None):
+    """token [B] -> (logits [B,V], cache advanced by one); ``mesh`` and
+    ``shard`` as for :func:`prefill`."""
+    if mesh is not None:
+        params, shard = mesh_args(params, cfg, mesh)
+    return _run(params, token[:, None], cfg, cache, shard=shard)
 
 
 def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -214,21 +295,25 @@ def generate(
     params, prompt: torch.Tensor, cfg: LlamaConfig, max_new_tokens: int,
     temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
     generator: torch.Generator | None = None, max_len: int | None = None,
-    eos_id: int = -1,
+    eos_id: int = -1, mesh=None,
 ) -> torch.Tensor:
     """Greedy (temperature=0) or sampled generation, with optional top-k
     and/or nucleus filtering when temperature > 0.
 
     prompt [B, S] -> generated tokens [B, max_new_tokens]. ``eos_id >= 0``
     enables stop-token semantics: once a row emits eos, every later
-    position repeats eos."""
+    position repeats eos. ``mesh`` decodes over it: ``params`` placed by
+    :func:`nanotpu_torch.parallel.infer.place_params`, the same prompt and
+    an identically seeded ``generator`` on every process, which all return
+    the same tokens."""
     B, S = prompt.shape
     max_len = max_len or min(cfg.max_seq_len, S + max_new_tokens)
     if S + max_new_tokens > max_len:
         raise ValueError(
             f"prompt {S} + new {max_new_tokens} exceeds max_len {max_len}"
         )
-    logits, cache = prefill(params, prompt, cfg, max_len)
+    params, shard = mesh_args(params, cfg, mesh)
+    logits, cache = prefill(params, prompt, cfg, max_len, shard=shard)
 
     def sample(logits):
         if temperature <= 0.0:
@@ -241,7 +326,7 @@ def generate(
     done = (token == eos_id) if eos_id >= 0 else None
     out = [token]
     for _ in range(max_new_tokens - 1):
-        logits, cache = decode_step(params, token, cfg, cache)
+        logits, cache = decode_step(params, token, cfg, cache, shard=shard)
         token = sample(logits)
         if eos_id >= 0:
             token = torch.where(done, eos_id, token)

@@ -15,8 +15,9 @@ on this rank's shards: its batch rows and, over sp, its sequence block
 (rope positions offset to match); weights gathered over fsdp at use;
 heads, ffn and vocab split over tp, with the tp collectives around each
 split product, the embedding and the cross entropy. ``attn_impl="ring"``
-(ring attention over sp, nanotpu's ``"ring"``) needs one. nanotpu's
-``"ring_manual"`` belongs to its pipeline, not ported.
+(ring attention over sp, nanotpu's ``"ring"``) needs one, as does
+``"ring_manual"``, which the pipeline's stages take (nanotpu's per-shard
+ring inside its manual region; here the same call on the sp group).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     #: "dense" (einsum chain), "flash" (the CUDA kernel) or "ring" (ring
-    #: attention over a mesh's sp axis, each block through the kernel)
+    #: attention over a mesh's sp axis, each block through the kernel;
+    #: "ring_manual" inside a pipeline stage)
     attn_impl: str = "dense"
     remat: bool = False
     #: "full" recomputes the whole layer in backward; "dots" saves the
@@ -201,9 +203,9 @@ def attention(params: dict, x: torch.Tensor, cfg: LlamaConfig,
     H, KV = q.shape[2], k.shape[2]
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if cfg.attn_impl == "ring":
+    if cfg.attn_impl in ("ring", "ring_manual"):
         if shard is None:
-            raise ValueError("attn_impl 'ring' runs on a mesh: "
+            raise ValueError(f"attn_impl {cfg.attn_impl!r} runs on a mesh: "
                              "build_train_step(..., mesh=...)")
         # k/v stay at KV heads: each hop of the ring moves H/KV x fewer bytes
         out = ring_attention(q, k, v, shard.group["sp"], causal=True)

@@ -20,6 +20,11 @@ each cycle reads the shared acceptance ``a`` (the minimum over rows) from
 the device once; everything else stays there. Rollback is free: a cache's
 ``length`` is the only truth, and stale entries past it are overwritten by
 the next cycle's writes.
+
+``mesh=`` speculates over a tp x fsdp mesh: both trees placed by
+:func:`nanotpu_torch.parallel.infer.place_params`, the draft on the
+target's mesh, whose tied embedding and head are then the target's local
+shards, not copies.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ def speculative_generate(
     max_new_tokens: int, draft_tokens: int = 4, max_len: int | None = None,
     eos_id: int = -1, temperature: float = 0.0, top_k: int = 0,
     top_p: float = 1.0, generator: torch.Generator | None = None,
-    return_stats: bool = False,
+    return_stats: bool = False, mesh=None,
 ):
     """``max_new_tokens`` tokens from the target ``params``, proposed by
     ``draft_params``: [B, max_new_tokens], or ``(tokens, stats)`` with
@@ -87,7 +92,9 @@ def speculative_generate(
 
     Rows advance by the MINIMUM acceptance across rows; rows that matched
     further re-verify those tokens next cycle (greedy re-emits them, and a
-    sampled row draws fresh valid samples of p). ``draft_tokens`` is K."""
+    sampled row draws fresh valid samples of p). ``draft_tokens`` is K.
+    ``mesh`` as for :func:`~nanotpu_torch.models.generate.generate`, with
+    both trees placed on it."""
     B, S = prompt.shape
     K, N = draft_tokens, max_new_tokens
     # the last cycle enters at cache length <= S+N-2 and writes K+1
@@ -104,9 +111,17 @@ def speculative_generate(
     def warp(logits):
         return _warp(logits, temperature, top_k, top_p)
 
+    shard = dshard = None
+    if mesh is not None:
+        from nanotpu_torch.parallel.infer import on_mesh
+
+        tied: dict = {}
+        params, shard = on_mesh(params, cfg, mesh, tied)
+        draft_params, dshard = on_mesh(draft_params, draft_cfg, mesh, tied)
     # the draft's prefill only primes its cache (head=False)
-    t_logits, t_cache = prefill(params, prompt, cfg, max_len)
-    _, d_cache = prefill(draft_params, prompt, draft_cfg, max_len, head=False)
+    t_logits, t_cache = prefill(params, prompt, cfg, max_len, shard=shard)
+    _, d_cache = prefill(draft_params, prompt, draft_cfg, max_len, head=False,
+                         shard=dshard)
     if sampled:
         cur = sample_probs(warp(t_logits), generator)
     else:
@@ -120,7 +135,7 @@ def speculative_generate(
         tok, drafts, qs = cur, [], []
         for _ in range(K):
             logits, d_cache = _run(draft_params, tok[:, None], draft_cfg,
-                                   d_cache)
+                                   d_cache, shard=dshard)
             if sampled:
                 qs.append(warp(logits))
                 tok = sample_probs(qs[-1], generator)
@@ -130,7 +145,7 @@ def speculative_generate(
         drafts = torch.stack(drafts, dim=1)  # [B, K]: d1..dK
         v_logits, t_cache = _run(
             params, torch.cat([cur[:, None], drafts], dim=1), cfg, t_cache,
-            return_all=True,
+            return_all=True, shard=shard,
         )  # [B, K+1, V]
         if sampled:
             p_all = warp(v_logits)
@@ -158,7 +173,7 @@ def speculative_generate(
             # the next cycle starts from the bonus token, whose draft
             # context includes d_K, which the K steps never fed
             _, d_cache = _run(draft_params, drafts[:, -1:], draft_cfg,
-                              d_cache, head=False)
+                              d_cache, head=False, shard=dshard)
         t_cache = t_cache._replace(length=t_base + a + 1)
         d_cache = d_cache._replace(length=d_base + a + 1)
         acc += a

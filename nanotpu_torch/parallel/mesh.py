@@ -6,7 +6,7 @@ over every process of the job, one process a card), the axes and the specs,
 and places parameters as DTensors by those specs. Axes, in nanotpu's order:
 
 * ``dp``   — pure data parallel (gradients all-reduced)
-* ``pp``   — pipeline stages (not ported: size 1)
+* ``pp``   — pipeline stages (GPipe, :mod:`.pipeline`)
 * ``fsdp`` — data parallel with parameters and optimizer state sharded
   (ZeRO-3: each weight gathered at use, its gradient reduce-scattered)
 * ``tp``   — tensor parallel over attention heads, ffn hidden and vocab
@@ -17,8 +17,9 @@ Where XLA inserts collectives from the shardings, the port's model runs on
 the local shards and :class:`Shards` issues them, each an autograd
 function whose backward is its transpose: the fsdp all-gather of a weight
 at its use (backward: reduce-scatter), tp's identity-forward copy
-(backward: all-reduce) and all-reduce (backward: identity), and the
-vocab-parallel embedding and cross entropy over tp.
+(backward: all-reduce) and all-reduce (backward: identity), the same pair
+over pp around a pipeline, and the vocab-parallel embedding and cross
+entropy over tp.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from nanotpu_torch.models.quant import embedding_lookup
 from nanotpu_torch.tree import map_tree
 
 #: nanotpu's canonical axis order
@@ -304,7 +306,12 @@ class Shards:
     def use(self, params, specs):
         """``params`` (local shards) with every leaf whose spec names fsdp
         all-gathered over fsdp along that dim: the weight whole on fsdp,
-        still split over tp."""
+        still split over tp. Over an fsdp group of one the gather is the
+        identity (and its reduce-scatter too) and is skipped: it would
+        copy every weight at each use."""
+        if self.size["fsdp"] == 1:
+            return params
+
         def one(w, spec):
             for d, entry in enumerate(spec):
                 if "fsdp" in _entry_axes(entry):
@@ -319,15 +326,33 @@ class Shards:
     def tp_out(self, x: torch.Tensor) -> torch.Tensor:
         return _Reduce.apply(x, self.group["tp"])
 
-    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, table, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
         """Rows of a vocab-split table: each rank looks up the tokens in its
-        vocab slice, zeros the others, and the sum over tp holds them all."""
+        vocab slice, zeros the others, and the sum over tp holds them all.
+        An int8 table (``QArray``) gives rows in ``dtype``, as
+        :func:`~nanotpu_torch.models.quant.embedding_lookup` does."""
         rows = table.shape[0]
         lo = self.rank["tp"] * rows
         local = tokens.long() - lo
         hit = (local >= 0) & (local < rows)
-        x = table[local.clamp(0, rows - 1)]
+        x = embedding_lookup(table, local.clamp(0, rows - 1), dtype)
         return self.tp_out(torch.where(hit[..., None], x, torch.zeros_like(x)))
+
+    def gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """``x`` all-gathered over ``axis`` along ``dim``, in rank order (no
+        autograd: the serving path's logits)."""
+        return _gather(x, dim % x.dim(), self.group[axis])
+
+    # -- pipeline ------------------------------------------------------------
+    def pp_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Enter a pipeline every pp rank holds ``x`` for: identity, whose
+        gradient sums over pp (only the first stage's is not zero)."""
+        return _Copy.apply(x, self.group["pp"])
+
+    def pp_out(self, x: torch.Tensor) -> torch.Tensor:
+        """Leave a pipeline: the sum over pp of each rank's ``x`` (zeros but
+        on the last stage), whose gradient every rank has whole."""
+        return _Reduce.apply(x, self.group["pp"])
 
     def nll_sum(self, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Summed next-token NLL of ``logits`` [N, V/tp] f32 (this rank's

@@ -14,12 +14,14 @@ eagerly on the CPU. ``--profile-dir`` traces the steady-state calls with
 ``torch.profiler``.
 
 On a mesh (``build_train_step(..., mesh=...)``; the CLI's ``--dp --fsdp
---tp --sp`` in a job of several processes, :mod:`.distributed`) the state
-is placed as DTensors by nanotpu's PartitionSpecs (:func:`place_state`),
-and each rank runs the model on its shards (:class:`.mesh.Shards`), sums
-the gradients over the data axes each parameter is not split on, clips by
-the global norm and updates its shards in place. nanotpu's ``ep``, ``pp``
-and ``--microbatches`` are not ported: the CLI refuses them.
+--tp --sp --pp`` in a job of several processes, :mod:`.distributed`) the
+state is placed as DTensors by nanotpu's PartitionSpecs
+(:func:`place_state`), and each rank runs the model on its shards
+(:class:`.mesh.Shards`), sums the gradients over the data axes each
+parameter is not split on, clips by the global norm and updates its shards
+in place. ``--pp`` > 1 trains nanotpu's stacked tree through the GPipe
+pipeline (:mod:`.pipeline`, ``--microbatches`` of them). nanotpu's ``ep``
+is not ported: the CLI refuses it, and Mixtral on a mesh.
 
 Run:  python -m nanotpu_torch.parallel.train --preset flagship --attn flash
       --seq 2049 --batch 8 --data markov --steps 24 --fuse-steps 8
@@ -47,7 +49,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from nanotpu_torch import resolve_device
 from nanotpu_torch.models import llama, mixtral
 from nanotpu_torch.ops import attention
-from nanotpu_torch.parallel import distributed
+from nanotpu_torch.parallel import distributed, pipeline
 from nanotpu_torch.parallel.mesh import (
     BATCH_SPEC,
     P,
@@ -177,17 +179,22 @@ def build_train_step(
     on the device.
 
     With ``mesh`` (any size, one included) the step is the sharded one,
-    :func:`mesh_train_step`, on a state from :func:`place_state`."""
+    :func:`mesh_train_step`, on a state from :func:`place_state`: the Llama
+    loss, or the pipelined one
+    (:func:`.pipeline.make_pipelined_loss`, on the stacked tree placed by
+    :func:`.pipeline.llama_pp_param_specs`)."""
     if n_fused < 1:
         raise ValueError(f"n_fused must be at least 1, not {n_fused}")
     if mesh is not None:
         if n_fused != 1:
             raise ValueError("fused steps on a mesh are not ported yet")
-        if loss_fn not in (None, llama.loss_fn):
+        if not (loss_fn in (None, llama.loss_fn)
+                or isinstance(loss_fn, pipeline.PipelinedLoss)):
             raise ValueError("a mesh trains the Llama loss only: Mixtral on "
                              "a mesh is not ported yet")
         return mesh_train_step(cfg, optimizer, mesh,
-                               param_specs or llama_param_specs(cfg))
+                               param_specs or llama_param_specs(cfg),
+                               loss_fn or llama.loss_fn)
     loss_fn = loss_fn or llama.loss_fn
 
     def body(params, opt_state, tokens: torch.Tensor) -> torch.Tensor:
@@ -210,10 +217,12 @@ def build_train_step(
     return step_fn
 
 
-def mesh_train_step(cfg, optimizer: AdamW, mesh, specs):
+def mesh_train_step(cfg, optimizer: AdamW, mesh, specs,
+                    loss_fn: Callable = llama.loss_fn):
     """(state, tokens [B, S+1]) -> (state, loss) on ``mesh``: every process
     passes the same global batch and keeps its rows by BATCH_SPEC; the
-    model runs on this rank's shards; each gradient sums over the data
+    model runs on this rank's shards (``loss_fn(params, rows, cfg,
+    shard=...)``, this rank's share of the mean); each gradient sums over the data
     axes its parameter is not split on (fsdp's by the reduce-scatter of
     the gather at use); AdamW clips by the norm of the whole gradient tree
     and updates the local shards in place, so every DTensor keeps its
@@ -232,7 +241,7 @@ def mesh_train_step(cfg, optimizer: AdamW, mesh, specs):
             p.requires_grad_(True)
         rows = distribute_tensor(tokens, mesh, batch_placements,
                                  src_data_rank=None).to_local()
-        loss = llama.loss_fn(params, rows, cfg, shard=shards)
+        loss = loss_fn(params, rows, cfg, shard=shards)
         grads = shards.reduce_grads(torch.autograd.grad(loss, ps), flat_specs)
         optimizer.update(grads, opt_state, params,
                          norm=shards.global_norm(grads, flat_specs))
@@ -485,7 +494,7 @@ _PRESETS = {
 }
 
 #: flags of nanotpu's trainer that the port refuses, with their idle values
-_NOT_PORTED = {"ep": (1,), "pp": (1,), "microbatches": (0,)}
+_NOT_PORTED = {"ep": (1,)}
 
 
 def _auto_mesh_factors(n: int, model: str) -> dict[str, int]:
@@ -502,6 +511,12 @@ def _auto_mesh_factors(n: int, model: str) -> dict[str, int]:
             if rest % fsdp == 0:
                 return {"dp": rest // fsdp, "fsdp": fsdp, "tp": tp}
     raise AssertionError("unreachable: tp=1/fsdp=1 divides any n")
+
+
+def _stacked(init: Callable) -> Callable:
+    def stacked_init(cfg, generator, device=None):
+        return pipeline.stack_layers(init(cfg, generator, device=device))
+    return stacked_init
 
 
 def _parser():
@@ -521,9 +536,12 @@ def _parser():
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1,
                    help=">1 switches attention to the sp ring")
-    for flag in ("ep", "pp", "microbatches"):
-        p.add_argument(f"--{flag}", type=int, default=_NOT_PORTED[flag][0],
-                       help="flag of nanotpu's trainer: not ported yet")
+    p.add_argument("--ep", type=int, default=_NOT_PORTED["ep"][0],
+                   help="flag of nanotpu's trainer: not ported yet")
+    p.add_argument("--pp", type=int, default=1,
+                   help=">1 pipelines llama layers over pp stages")
+    p.add_argument("--microbatches", type=int, default=0,
+                   help="pipeline microbatches (0 = 2*pp)")
     p.add_argument("--attn", choices=["dense", "flash", "ring"], default="",
                    help="attention: flash = the CUDA kernels; ring (over sp, "
                         "each block through them) is implied by --sp")
@@ -624,8 +642,8 @@ def run(argv: list[str] | None = None) -> dict:
     args = parser.parse_args(argv)
     for flag, idle in _NOT_PORTED.items():
         if getattr(args, flag) not in idle:
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet: the "
-                         "port has no pipeline or expert parallelism")
+            parser.error(f"--{flag.replace('_', '-')} is not ported yet: "
+                         "expert parallelism comes next in the port's queue")
     device = resolve_device(args.device)
     joined = distributed.initialize(device=device)
     try:
@@ -665,14 +683,14 @@ def _run(parser, args, device: torch.device) -> dict:
         loss, init = mixtral.loss_fn, mixtral.init_params
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if args.dp or args.fsdp > 1 or args.tp > 1 or args.sp > 1:
+    if args.dp or args.fsdp > 1 or args.tp > 1 or args.sp > 1 or args.pp > 1:
         # --dp 0 with explicit parallelism flags: dp absorbs the remainder
-        denom = args.fsdp * args.tp * args.sp
+        denom = args.fsdp * args.tp * args.sp * args.pp
         if world % denom:
             parser.error(f"fsdp*tp*ep*sp*pp={denom} does not divide {world} "
                          "devices")
         factors = {"dp": args.dp or world // denom, "fsdp": args.fsdp,
-                   "tp": args.tp, "sp": args.sp}
+                   "tp": args.tp, "sp": args.sp, "pp": args.pp}
     else:
         factors = _auto_mesh_factors(world, args.model)
     err = mesh_size_error(**factors, world=world)
@@ -682,7 +700,8 @@ def _run(parser, args, device: torch.device) -> dict:
     if world > 1:
         if args.model != "llama":
             parser.error("--model mixtral on a mesh of more than one device "
-                         "is not ported yet")
+                         "is not ported yet: it comes with expert "
+                         "parallelism, next in the port's queue")
         if fuse > 1:
             parser.error("--fuse-steps > 1 on a mesh of more than one device "
                          "is not ported yet")
@@ -695,11 +714,16 @@ def _run(parser, args, device: torch.device) -> dict:
         parser.error("--attn ring runs over the sp axis of a mesh: a job of "
                      "more than one process")
     data_shards = factors["dp"] * factors.get("fsdp", 1)
+    n_micro = args.microbatches or 2 * args.pp
     batch = args.batch or max(2, data_shards)
-    rounded = -(-batch // data_shards) * data_shards
+    # the batch splits over the dp*fsdp data shards and, pipelined, each
+    # shard's rows into n_micro microbatches
+    unit = data_shards * (n_micro if args.pp > 1 else 1)
+    rounded = -(-batch // unit) * unit
     if rounded != batch:
         log.warning("--batch %d rounded up to %d (must split into %d data "
-                    "shards)", batch, rounded, data_shards)
+                    "shards%s)", batch, rounded, data_shards,
+                    f" of {n_micro} microbatches" if args.pp > 1 else "")
         batch = rounded
     seq = args.seq or min(cfg.max_seq_len, 512)
     if args.sp > 1:
@@ -720,19 +744,27 @@ def _run(parser, args, device: torch.device) -> dict:
 
     optimizer = make_optimizer(
         mu_dtype=torch.bfloat16 if args.bf16_momentum else None)
+    specs = None
+    if args.pp > 1:
+        pipeline.check_pp_divisibility(cfg, mesh, batch, n_micro)
+        # the stacked tree, so that the moments are made for the layout
+        # that trains
+        init = _stacked(init or llama.init_params)
+        specs = pipeline.llama_pp_param_specs(cfg)
+        loss = pipeline.make_pipelined_loss(mesh, n_micro)
     state = init_train_state(
         torch.Generator(device=device).manual_seed(args.seed), cfg, optimizer,
         device=device, init_fn=init)
     log.info("params %d", llama.param_count(state.params))
     if mesh is not None:
-        state = place_state(state, cfg, mesh)
+        state = place_state(state, cfg, mesh, param_specs=specs)
     if args.checkpoint_dir:
         restored = restore_checkpoint(args.checkpoint_dir, state)
         if restored is not None:
             state = restored
             log.info("resumed from step %d", state.step)
     step_fn = build_train_step(cfg, optimizer, loss_fn=loss, n_fused=fuse,
-                               mesh=mesh)
+                               mesh=mesh, param_specs=specs)
 
     # every chunk of gen_chunk steps' batches is made in one go on the
     # device, a whole number of calls; file data uses a fixed chunk so that

@@ -38,7 +38,24 @@ tokens it drops (``moe_prefill_dropped_total``).
 
 The caches and the decode carry are allocated once and updated in place
 (the JAX engine donates its buffers to the same end), so a graph's
-addresses hold. Meshes are not ported yet.
+addresses hold.
+
+**On a mesh** (``mesh=``, :mod:`nanotpu_torch.parallel.infer`) each process
+holds its shards: params placed tp x fsdp, the caches at its kv heads. The
+JAX engine drives the whole mesh from one process; here one process drives
+each card, and what the loop decides hangs on the host (when requests
+arrive, the measured policy's clock, what each row still owes). So rank 0
+leads: its loop decides each unit and first broadcasts a fixed-size
+descriptor of it over the world group (:meth:`Engine._announce`): an
+admission (slot, the prompt padded to its bucket, true length,
+temperature, token budget), a draft re-prime, a chunk (K, its unit count),
+a reset after a failed cycle, an idle heartbeat, or the stop. Every other
+rank follows (:meth:`Engine._follow`): it blocks on that broadcast and runs
+the same unit body on its shards, with the same host bookkeeping, from a
+generator seeded as rank 0's, so its requests (``followed``) end with the
+same tokens. ``submit`` on a follower raises. The captured graphs then
+hold the NCCL collectives of a step: the tp all-reduces, the logits'
+all-gather and the fsdp gathers.
 """
 
 from __future__ import annotations
@@ -54,6 +71,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nanotpu_torch import resolve_device
 from nanotpu_torch.metrics.stats import percentile
@@ -62,18 +80,17 @@ from nanotpu_torch.models.generate import (
     NEG_INF,
     _run,
     apply_top_k,
+    embed_rows,
     ffn,
     apply_top_p,
+    head_logits,
+    layer_params,
+    project_out,
+    project_qkv,
     sample_categorical,
     warp_logits,
 )
-from nanotpu_torch.models.llama import (
-    apply_rope,
-    embed_lookup,
-    linear,
-    rms_norm,
-    rope_freqs,
-)
+from nanotpu_torch.models.llama import rms_norm, rope_freqs
 from nanotpu_torch.models.quant import absmax_scale
 from nanotpu_torch.models.speculative import (
     _accepted_prefix,
@@ -98,8 +115,10 @@ class SlotCache(NamedTuple):
     lengths: torch.Tensor  # [SLOTS] int32, on the device
 
     @staticmethod
-    def create(cfg, slots: int, max_len: int, device=None) -> "SlotCache":
-        shape = (slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+    def create(cfg, slots: int, max_len: int, device=None,
+               tp: int = 1) -> "SlotCache":
+        """Zeroed, at one tp rank's ``n_kv_heads / tp`` heads."""
+        shape = (slots, max_len, cfg.n_kv_heads // tp, cfg.head_dim)
         device = resolve_device(device)
         return SlotCache(
             k=tuple(torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
@@ -122,8 +141,10 @@ class SlotCache8(NamedTuple):
     lengths: torch.Tensor  # [SLOTS] int32
 
     @staticmethod
-    def create(cfg, slots: int, max_len: int, device=None) -> "SlotCache8":
-        shape = (slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+    def create(cfg, slots: int, max_len: int, device=None,
+               tp: int = 1) -> "SlotCache8":
+        """Zeroed, at one tp rank's ``n_kv_heads / tp`` heads."""
+        shape = (slots, max_len, cfg.n_kv_heads // tp, cfg.head_dim)
         device = resolve_device(device)
         L = cfg.n_layers
 
@@ -206,7 +227,8 @@ def _cache_update_and_views(cache, i, k, v, dtype):
             _write_rows(cache.v[i], v, cache.lengths))
 
 
-def _rows_forward(params, cfg, cache, tokens, advance, head: bool = True):
+def _rows_forward(params, cfg, cache, tokens, advance, head: bool = True,
+                  shard=None):
     """Forward ``tokens [B, S]`` fed at each row's frontier; returns
     (logits [B, S, V] fp32, cache with per-row lengths advanced by
     ``advance [B]``). The shared body of the plain decode step (S=1) and
@@ -218,31 +240,29 @@ def _rows_forward(params, cfg, cache, tokens, advance, head: bool = True):
     :func:`_write_rows`. ``head=False`` skips the final norm and lm_head and
     returns (None, cache): the draft's cache-extension step. A Mixtral
     layer routes all B*S positions at full capacity: no token is dropped,
-    and no row's routing depends on another's."""
+    and no row's routing depends on another's. ``shard`` runs it on this
+    rank's shards (:mod:`nanotpu_torch.models.generate`'s mesh path), the
+    logits all-gathered over tp."""
     B, S = tokens.shape
     positions = cache.lengths[:, None] + torch.arange(
         S, dtype=torch.int32, device=tokens.device
     )[None, :]
     cos, sin = rope_freqs(cfg, positions)
-    x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    for i, layer in enumerate(params["layers"]):
-        attn = layer["attn"]
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = linear(h, attn["wq"]).reshape(B, S, H, hd)
-        k = linear(h, attn["wk"]).reshape(B, S, KV, hd)
-        v = linear(h, attn["wv"]).reshape(B, S, KV, hd)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    x = embed_rows(params, tokens, cfg, shard)
+    for i in range(len(params["layers"])):
+        layer = layer_params(params, i, shard)
+        q, k, v = project_qkv(layer["attn"],
+                              rms_norm(x, layer["attn_norm"], cfg.norm_eps),
+                              cfg, cos, sin, shard)
         k_view, v_view = _cache_update_and_views(cache, i, k, v, x.dtype)
         out = _attend_rows(q, k_view, v_view, cache.lengths)
-        x = x + linear(out.reshape(B, S, H * hd), attn["wo"])
-        x = x + ffn(layer, x, cfg, full_capacity=True)
+        x = x + project_out(layer["attn"], out, shard)
+        x = x + ffn(layer, x, cfg, full_capacity=True, shard=shard)
     new_cache = cache._replace(lengths=cache.lengths + advance.to(torch.int32))
     if not head:
         return None, new_cache
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return linear(x, params["lm_head"]).float(), new_cache  # [B,S,V]
+    return head_logits(params, x, shard), new_cache  # [B,S,V]
 
 
 def _warp_rows(logits, temps, top_k: int, top_p: float):
@@ -258,14 +278,15 @@ def _warp_rows(logits, temps, top_k: int, top_p: float):
 
 
 def serving_step(params, cfg, cache, tokens, active, temps, generator,
-                 top_k: int = 0, top_p: float = 1.0):
+                 top_k: int = 0, top_p: float = 1.0, shard=None):
     """One decode step for the whole slot batch.
 
     tokens/active/temps: [SLOTS]; returns (next_tokens [SLOTS], cache with
     active rows advanced by one). Greedy where temps <= 0, temperature /
     top-k / top-p sampling elsewhere."""
     logits_all, new_cache = _rows_forward(
-        params, cfg, cache, tokens[:, None], active.to(torch.int32)
+        params, cfg, cache, tokens[:, None], active.to(torch.int32),
+        shard=shard,
     )
     logits = logits_all[:, -1]  # [B, V]
     greedy = torch.argmax(logits, dim=-1)
@@ -276,7 +297,7 @@ def serving_step(params, cfg, cache, tokens, active, temps, generator,
 
 def serving_chunk_step(params, cfg, cache, tokens, done, temps, remaining,
                        generator, eos_id: int = -1, top_k: int = 0,
-                       top_p: float = 1.0):
+                       top_p: float = 1.0, shard=None):
     """One step of :func:`serving_chunk` (the body of nanotpu's scan, and
     what the engine captures as a CUDA graph): a decode step plus the
     freeze rule. A row freezes when it emits ``eos_id`` or its
@@ -288,7 +309,7 @@ def serving_chunk_step(params, cfg, cache, tokens, done, temps, remaining,
     active = ~done
     nxt, cache = serving_step(
         params, cfg, cache, tokens, active, temps, generator,
-        top_k=top_k, top_p=top_p,
+        top_k=top_k, top_p=top_p, shard=shard,
     )
     tokens = torch.where(done, tokens, nxt)  # frozen rows hold theirs
     remaining = remaining - active.to(remaining.dtype)
@@ -300,7 +321,7 @@ def serving_chunk_step(params, cfg, cache, tokens, done, temps, remaining,
 
 def serving_chunk(params, cfg, cache, tokens, done, temps, remaining,
                   generator, n_steps: int, eos_id: int = -1, top_k: int = 0,
-                  top_p: float = 1.0):
+                  top_p: float = 1.0, shard=None):
     """``n_steps`` decode steps with tokens/done/remaining kept on the
     device (the JAX engine's ``lax.scan`` chunk as a loop of
     :func:`serving_chunk_step`): no step waits on the host.
@@ -311,7 +332,7 @@ def serving_chunk(params, cfg, cache, tokens, done, temps, remaining,
     for _ in range(n_steps):
         cache, tokens, done, remaining = serving_chunk_step(
             params, cfg, cache, tokens, done, temps, remaining, generator,
-            eos_id=eos_id, top_k=top_k, top_p=top_p,
+            eos_id=eos_id, top_k=top_k, top_p=top_p, shard=shard,
         )
         toks.append(tokens)
     return cache, tokens, done, remaining, torch.stack(toks)
@@ -320,7 +341,7 @@ def serving_chunk(params, cfg, cache, tokens, done, temps, remaining,
 def speculative_serving_cycle(params, draft_params, cfg, dcfg, cache,
                               d_cache, tokens, active, temps, generator,
                               draft_tokens: int, top_k: int = 0,
-                              top_p: float = 1.0):
+                              top_p: float = 1.0, shard=None, dshard=None):
     """One speculative cycle for the whole slot batch, each row advancing by
     ITS OWN acceptance.
 
@@ -333,7 +354,8 @@ def speculative_serving_cycle(params, draft_params, cfg, dcfg, cache,
 
     tokens/active/temps: [SLOTS]. Returns (cache, d_cache, next_tokens
     [SLOTS], emit [SLOTS, K+1], counts [SLOTS]): counts[i] of emit[i] are
-    valid (0 for inactive rows)."""
+    valid (0 for inactive rows). ``shard`` and ``dshard`` run the target
+    and the draft on this rank's shards."""
     B = tokens.shape[0]
     K = draft_tokens
     t_base, d_base = cache.lengths, d_cache.lengths
@@ -344,7 +366,7 @@ def speculative_serving_cycle(params, draft_params, cfg, dcfg, cache,
     tok, drafts, qs = tokens, [], []
     for _ in range(K):
         logits, d_cache = _rows_forward(draft_params, dcfg, d_cache,
-                                        tok[:, None], ones)
+                                        tok[:, None], ones, shard=dshard)
         q_warp = torch.softmax(
             _warp_rows(logits[:, -1], temps, top_k, top_p), dim=-1)
         sampled = sample_probs(q_warp, generator)
@@ -355,11 +377,12 @@ def speculative_serving_cycle(params, draft_params, cfg, dcfg, cache,
     drafts = torch.stack(drafts, dim=1)  # [B, K]
     q_probs = torch.stack(qs, dim=1)  # [B, K, V]
     _, d_cache = _rows_forward(draft_params, dcfg, d_cache, tok[:, None],
-                               zeros, head=False)
+                               zeros, head=False, shard=dshard)
 
     # -- target verifies cur + d1..dK in one per-row-frontier forward -----
     verify = torch.cat([tokens[:, None], drafts], dim=1)  # [B, K+1]
-    v_logits, cache = _rows_forward(params, cfg, cache, verify, zeros)
+    v_logits, cache = _rows_forward(params, cfg, cache, verify, zeros,
+                                    shard=shard)
     greedy = torch.argmax(v_logits, dim=-1)  # [B, K+1]
     flat = v_logits.reshape(B * (K + 1), -1)
     p_all = torch.softmax(
@@ -397,7 +420,7 @@ def speculative_serving_chunk(params, draft_params, cfg, dcfg, cache,
                               d_cache, tokens, done, temps, remaining,
                               generator, n_cycles: int, draft_tokens: int,
                               eos_id: int = -1, top_k: int = 0,
-                              top_p: float = 1.0):
+                              top_p: float = 1.0, shard=None, dshard=None):
     """``n_cycles`` speculative cycles with every carried value on the device
     (the speculative analogue of :func:`serving_chunk`, with its freeze
     rule, emitting up to K+1 tokens per row per cycle).
@@ -412,7 +435,7 @@ def speculative_serving_chunk(params, draft_params, cfg, dcfg, cache,
             speculative_chunk_cycle(
                 params, draft_params, cfg, dcfg, cache, d_cache, tokens, done,
                 temps, remaining, generator, draft_tokens, eos_id=eos_id,
-                top_k=top_k, top_p=top_p,
+                top_k=top_k, top_p=top_p, shard=shard, dshard=dshard,
             ))
         emits.append(emit)
         counts.append(count)
@@ -423,7 +446,8 @@ def speculative_serving_chunk(params, draft_params, cfg, dcfg, cache,
 def speculative_chunk_cycle(params, draft_params, cfg, dcfg, cache, d_cache,
                             tokens, done, temps, remaining, generator,
                             draft_tokens: int, eos_id: int = -1,
-                            top_k: int = 0, top_p: float = 1.0):
+                            top_k: int = 0, top_p: float = 1.0, shard=None,
+                            dshard=None):
     """One cycle of :func:`speculative_serving_chunk` (what the engine
     captures as a CUDA graph): a speculative cycle plus the freeze rule. A
     row freezes when its valid emitted prefix holds ``eos_id`` or its
@@ -435,7 +459,8 @@ def speculative_chunk_cycle(params, draft_params, cfg, dcfg, cache, d_cache,
     K = draft_tokens
     cache, d_cache, tokens, emit, count = speculative_serving_cycle(
         params, draft_params, cfg, dcfg, cache, d_cache, tokens, ~done,
-        temps, generator, K, top_k=top_k, top_p=top_p,
+        temps, generator, K, top_k=top_k, top_p=top_p, shard=shard,
+        dshard=dshard,
     )
     remaining = remaining - count
     done = done | (remaining <= 0)
@@ -445,21 +470,28 @@ def speculative_chunk_cycle(params, draft_params, cfg, dcfg, cache, d_cache,
     return cache, d_cache, tokens, done, remaining, emit, count
 
 
-def prefill_cache_only(params, cfg, prompt_padded, max_len: int):
+def _tp(shard) -> int:
+    return 1 if shard is None else shard.size["tp"]
+
+
+def prefill_cache_only(params, cfg, prompt_padded, max_len: int,
+                       shard=None):
     """Prefill that only primes cache rows, no lm_head (the speculative
     draft's admission path). Takes a [B, S] batch (the re-prime path's
     rows of one bucket in one call); returns (k rows, v rows) for
-    :func:`insert_request` (B=1) or :func:`insert_rows`."""
+    :func:`insert_request` (B=1) or :func:`insert_rows`; ``shard``: at
+    this rank's kv heads."""
     cache = KVCache.create(cfg, prompt_padded.shape[0], max_len,
-                           device=prompt_padded.device)
+                           device=prompt_padded.device, tp=_tp(shard))
     _, cache = _run(params, prompt_padded, cfg, cache, full_prefill=True,
-                    head=False)
+                    head=False, shard=shard)
     return cache.k, cache.v
 
 
 def prefill_request(params, cfg, prompt_padded, true_len: int, max_len: int,
                     temp: float, generator, top_k: int = 0,
-                    top_p: float = 1.0, count_drops: bool = False):
+                    top_p: float = 1.0, count_drops: bool = False,
+                    shard=None):
     """Prefill one request (B=1, padded prompt) and sample its first token.
 
     Returns (first_token 0-dim tensor, k rows, v rows) where rows are
@@ -471,12 +503,14 @@ def prefill_request(params, cfg, prompt_padded, true_len: int, max_len: int,
     tensor on the device: the real tokens' choices that expert capacity
     dropped, over every layer. Prefill routes at Switch capacity over the
     padded bucket, and capacity fills in token order, so the trailing pads
-    lose their slots first: they are masked out of the count."""
-    cache = KVCache.create(cfg, 1, max_len, device=prompt_padded.device)
+    lose their slots first: they are masked out of the count. ``shard``
+    runs it on this rank's shards, its rows at the rank's kv heads."""
+    cache = KVCache.create(cfg, 1, max_len, device=prompt_padded.device,
+                           tp=_tp(shard))
     drop_acc = [] if count_drops else None
     logits_all, cache = _run(
         params, prompt_padded, cfg, cache, full_prefill=True,
-        return_all=True, drop_acc=drop_acc,
+        return_all=True, drop_acc=drop_acc, shard=shard,
     )  # [1, S_pad, V]; drop_acc holds one [S_pad] vector a MoE layer
     logits = logits_all[:, true_len - 1]  # [1, V]
     if temp > 0:
@@ -536,6 +570,20 @@ def insert_rows(cache, ks, vs, slots, lengths):
     cache.lengths[dest] = torch.tensor([int(lengths[j]) for j in keep],
                                        dtype=torch.int32, device=device)
     return cache
+
+
+#: the unit descriptor rank 0 broadcasts on a mesh: [kind, six fields, its
+#: sequence number], then an admission's prompt padded to max_len
+_NOOP, _ADMIT, _REPRIME, _CHUNK, _RESET, _STOP = range(6)
+_HEADER = 8
+
+
+def _f64_bits(x: float) -> int:
+    return int(np.float64(x).view(np.int64))
+
+
+def _bits_f64(x) -> float:
+    return float(np.int64(x).view(np.float64))
 
 
 class Request:
@@ -633,6 +681,13 @@ class Engine:
     CUDA graph captured at warm-up: on by default on a ``cuda`` device, off
     on the CPU (where ``True`` raises). ``False`` on a card runs the same
     bodies eagerly.
+
+    ``mesh`` (a DeviceMesh over every process of the job, from
+    :func:`nanotpu_torch.parallel.mesh.make_mesh`) serves over it: every
+    process builds the engine from the same whole ``params`` (and draft)
+    and the same arguments; the engine places them (``place_params``) and
+    keeps its shards. Rank 0 leads and takes requests; the others follow
+    (see the module docstring), and their ``stop`` waits for rank 0's.
     """
 
     #: EWMA weight of one new tokens/s sample (the engine's rate and the
@@ -642,6 +697,9 @@ class Engine:
     BANDIT_MIN_SAMPLES = 3
     #: re-probe a losing arm every N syncs per bucket (tracks drift)
     BANDIT_PROBE_EVERY = 12
+    #: on a mesh, an idle leader broadcasts a no-op this often, so that no
+    #: follower's pending broadcast reaches its collective timeout
+    HEARTBEAT_S = 10.0
 
     def __init__(self, params, cfg, slots: int = 8, max_len: int | None = None,
                  buckets: tuple = DEFAULT_BUCKETS, eos_id: int = -1,
@@ -649,8 +707,12 @@ class Engine:
                  chunk_steps: int = 32, chunk_steps_max: int = 96,
                  kv_int8: bool = False, draft_params=None, draft_cfg=None,
                  draft_tokens: int = 4, spec_policy="auto", device=None,
-                 cuda_graphs: bool | None = None):
+                 cuda_graphs: bool | None = None, mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None and self.device.type == "cuda":
+            from nanotpu_torch.parallel.distributed import local_device
+
+            self.device = local_device(self.device)
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda"
         elif cuda_graphs and self.device.type != "cuda":
@@ -663,6 +725,29 @@ class Engine:
             raise ValueError(
                 f"params live on {on}, the engine on {self.device}"
             )
+        #: on a mesh: this rank's shards and the Shards that run the target
+        #: (and the draft) on them; rank 0 leads
+        self.mesh = mesh
+        self._shard = self._dshard = None
+        self.world = 1
+        self.leader = True
+        tp = 1
+        if mesh is not None:
+            from nanotpu_torch.parallel.infer import on_mesh, place_params
+
+            # the draft's tied embedding and head: the target's shards
+            placed, tied = {}, {}
+            params, self._shard = on_mesh(
+                place_params(params, cfg, mesh, placed), cfg, mesh, tied)
+            if draft_params is not None:
+                if draft_cfg is None:
+                    raise ValueError("draft_params needs draft_cfg")
+                draft_params, self._dshard = on_mesh(
+                    place_params(draft_params, draft_cfg, mesh, placed),
+                    draft_cfg, mesh, tied)
+            self.world = dist.get_world_size()
+            self.leader = dist.get_rank() == 0
+            tp = self._shard.size["tp"]
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -682,7 +767,7 @@ class Engine:
         self.kv_int8 = kv_int8
         cache_cls = SlotCache8 if kv_int8 else SlotCache
         self._cache = cache_cls.create(cfg, slots, self.max_len,
-                                       device=self.device)
+                                       device=self.device, tp=tp)
 
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
@@ -742,7 +827,7 @@ class Engine:
             if draft_cfg is None:
                 raise ValueError("draft_params needs draft_cfg")
             self._d_cache = SlotCache.create(draft_cfg, slots, self.max_len,
-                                             device=self.device)
+                                             device=self.device, tp=tp)
 
         self._slot_req: list[Request | None] = [None] * slots
         # host mirrors of per-row decode state; re-uploaded when _dirty
@@ -761,6 +846,13 @@ class Engine:
         #: K -> the captured :class:`~.graphs.StepGraph` (graph mode)
         self.graphs: dict[int, StepGraph] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        #: the unit descriptor (a mesh's broadcast buffer), the count of
+        #: descriptors sent or received, and a follower's requests, in
+        #: admission order
+        self._desc = torch.zeros((_HEADER + self.buckets[-1],),
+                                 dtype=torch.int64, device=self.device)
+        self._seq = 0
+        self.followed: list[Request] = []
         self._queue: deque[Request] = deque()
         self._cv = threading.Condition()
         self._stop = False
@@ -789,6 +881,10 @@ class Engine:
     # -- public API --------------------------------------------------------
     def submit(self, tokens: list[int], max_new_tokens: int,
                temperature: float = 0.0) -> Request:
+        if not self.leader:
+            raise RuntimeError(
+                f"rank {dist.get_rank()} follows rank 0 on the mesh: submit "
+                "requests to rank 0's engine")
         req = Request(tokens, max_new_tokens, temperature)
         if not tokens or max_new_tokens < 1:
             req._finish("empty prompt or max_new_tokens < 1")
@@ -831,11 +927,15 @@ class Engine:
             raise RuntimeError("engine warm-up failed") from self._warm_error
         return ready
 
-    def stop(self) -> None:
-        with self._cv:
-            self._stop = True
-            self._cv.notify()
-        self._thread.join(timeout=30)
+    def stop(self, timeout: float = 30.0) -> None:
+        """Stop the loop, failing what it has not finished; on a mesh,
+        rank 0's broadcasts the stop, and a follower's waits (up to
+        ``timeout`` seconds) for it."""
+        if self.leader:
+            with self._cv:
+                self._stop = True
+                self._cv.notify()
+        self._thread.join(timeout=timeout)
         if not self._thread.is_alive():
             # the units hold bound methods of this engine: drop the cycle
             # and the graphs' memory now, not at a later collection
@@ -864,7 +964,7 @@ class Engine:
             "active": float(active),
             "slots": float(self.slots),
             "kv_occupancy": round(kv_used / (self.slots * self.max_len), 6),
-            "chips": 1.0,
+            "chips": float(self.world),
             "ttft_p99_ms": (
                 round(ttft_p99 * 1e3, 2) if ttft_p99 is not None else 0.0
             ),
@@ -933,14 +1033,17 @@ class Engine:
         land in empty rows, which admission overwrites whole, and no
         length, token or budget moves."""
         if self.device.type == "cuda":
+            if self.device.index is not None:
+                # the loop's thread: its collectives and graphs use this card
+                torch.cuda.set_device(self.device)
             _build.build_all()
         padded = torch.zeros((1, self.buckets[0]), dtype=torch.long,
                              device=self.device)
         prefill_request(self.params, self.cfg, padded, 1, self.max_len, 0.0,
-                        self._gen)
+                        self._gen, shard=self._shard)
         if self.draft_params is not None and self.spec_rules:
             prefill_cache_only(self.draft_params, self.draft_cfg, padded,
-                               self.max_len)
+                               self.max_len, shard=self._dshard)
         if self.cuda_graphs:
             # one pool for all of this engine's graphs: they never run at
             # once, and each keeps its outputs in the fixed buffers
@@ -965,7 +1068,7 @@ class Engine:
         cache, tokens, done, remaining = serving_chunk_step(
             self.params, self.cfg, self._cache, b.tokens, b.done, b.temps,
             b.remaining, self._gen, eos_id=self.eos_id, top_k=self.top_k,
-            top_p=self.top_p,
+            top_p=self.top_p, shard=self._shard,
         )
         self._cache.lengths.copy_(cache.lengths)
         b.carry(tokens, done, remaining)
@@ -980,7 +1083,8 @@ class Engine:
                 self.params, self.draft_params, self.cfg, self.draft_cfg,
                 self._cache, self._d_cache, b.tokens, b.done, b.temps,
                 b.remaining, self._gen, k, eos_id=self.eos_id,
-                top_k=self.top_k, top_p=self.top_p,
+                top_k=self.top_k, top_p=self.top_p, shard=self._shard,
+                dshard=self._dshard,
             ))
         self._cache.lengths.copy_(cache.lengths)
         self._d_cache.lengths.copy_(d_cache.lengths)
@@ -988,58 +1092,67 @@ class Engine:
         b.record((b.emits[k], emit), (b.counts[k], count))
 
     def _admit_all(self) -> None:
-        """Move queued requests into free slots. Prefills are enqueued per
-        request, and their first tokens come back in ONE stacked fetch."""
-        admitted: list[tuple[Request, int, torch.Tensor, torch.Tensor]] = []
+        """Move queued requests into free slots (rank 0; on a mesh each
+        admission is announced first). Prefills are enqueued per request,
+        and their first tokens come back in ONE stacked fetch."""
+        free = [i for i, r in enumerate(self._slot_req) if r is None]
+        with self._cv:
+            reqs = [self._queue.popleft()
+                    for _ in range(min(len(free), len(self._queue)))]
         # speculative mode reserves K+1 positions for the last cycle's
         # write overshoot
         slack = self.draft_tokens + 1 if self.draft_params is not None else 0
-        while True:
-            slot = next(
-                (i for i, r in enumerate(self._slot_req) if r is None
-                 and all(a[1] != i for a in admitted)),
-                None,
-            )
-            if slot is None:
-                break
-            with self._cv:
-                if not self._queue:
-                    break
-                req = self._queue.popleft()
+        occupied = self.slots - len(free)
+        admitted = []
+        for j, (req, slot) in enumerate(zip(reqs, free)):
             S = len(req.prompt)
             # cap generation to the cache row; the floor of 1 keeps a
             # near-max_len prompt at one prefill token, no decode steps (a
             # one-token budget freezes before any speculative cycle writes)
             req.max_new_tokens = max(1, min(req.max_new_tokens,
                                             self.max_len - S - slack))
-            padded = np.zeros((1, self._bucket(S)), np.int64)
-            padded[0, :S] = req.prompt
-            padded = torch.from_numpy(padded).to(self.device)
-            out = prefill_request(
-                self.params, self.cfg, padded, S, self.max_len,
-                req.temperature, self._gen, top_k=self.top_k, top_p=self.top_p,
-                count_drops=self._count_drops,
-            )
-            first, ks, vs = out[:3]
-            # MoE: the drop count rides the same fetch as the first tokens
-            drops = out[3] if self._count_drops else None
-            insert_request(self._cache, ks, vs, slot, S)
-            if self._d_cache is not None:
-                # prime the draft row only when the occupancy after this
-                # admission could speculate (the measured policy always
-                # may); otherwise regime entry re-primes it
-                occ_after = sum(
-                    1 for r in self._slot_req if r is not None
-                ) + len(admitted) + 1
-                if self._measured or self._policy_k(occ_after) > 0:
-                    dks, dvs = prefill_cache_only(
-                        self.draft_params, self.draft_cfg, padded,
-                        self.max_len)
-                    insert_request(self._d_cache, dks, dvs, slot, S)
-                    self._draft_stale.discard(slot)
-                else:
-                    self._draft_stale.add(slot)
-            admitted.append((req, slot, first, drops))
+            # prime the draft row only when the occupancy after this
+            # admission could speculate (the measured policy always may);
+            # otherwise regime entry re-primes it
+            prime = self._d_cache is not None and (
+                self._measured or self._policy_k(occupied + j + 1) > 0)
+            self._announce(_ADMIT, slot, S, _f64_bits(req.temperature),
+                           req.max_new_tokens, int(prime),
+                           int(j == len(reqs) - 1), tokens=req.prompt)
+            admitted.append(self._admit_one(req, slot, prime))
+        self._finish_admissions(admitted)
+
+    def _admit_one(self, req: Request, slot: int, prime: bool) -> tuple:
+        """Prefill ``req`` into ``slot`` (and its draft row when ``prime``);
+        returns (req, slot, first token, MoE drops), all on the device."""
+        S = len(req.prompt)
+        padded = np.zeros((1, self._bucket(S)), np.int64)
+        padded[0, :S] = req.prompt
+        padded = torch.from_numpy(padded).to(self.device)
+        out = prefill_request(
+            self.params, self.cfg, padded, S, self.max_len,
+            req.temperature, self._gen, top_k=self.top_k, top_p=self.top_p,
+            count_drops=self._count_drops, shard=self._shard,
+        )
+        first, ks, vs = out[:3]
+        # MoE: the drop count rides the same fetch as the first tokens
+        drops = out[3] if self._count_drops else None
+        insert_request(self._cache, ks, vs, slot, S)
+        if self._d_cache is not None:
+            if prime:
+                dks, dvs = prefill_cache_only(
+                    self.draft_params, self.draft_cfg, padded, self.max_len,
+                    shard=self._dshard)
+                insert_request(self._d_cache, dks, dvs, slot, S)
+                self._draft_stale.discard(slot)
+            else:
+                self._draft_stale.add(slot)
+        return req, slot, first, drops
+
+    def _finish_admissions(self, admitted: list) -> None:
+        """One fetch of the admitted rows' first tokens (and MoE drops),
+        then their bookkeeping: a row done at its first token finishes,
+        the others take their slots."""
         if not admitted:
             return
         fetched = [f for _, _, f, _ in admitted]
@@ -1156,7 +1269,8 @@ class Engine:
                 padded[j, :t_len] = seq[:t_len]
             dks, dvs = prefill_cache_only(
                 self.draft_params, self.draft_cfg,
-                torch.from_numpy(padded).to(self.device), self.max_len)
+                torch.from_numpy(padded).to(self.device), self.max_len,
+                shard=self._dshard)
             insert_rows(self._d_cache, dks, dvs, [i for i, _, _ in rows],
                         [t_len for _, t_len, _ in rows])
 
@@ -1164,12 +1278,9 @@ class Engine:
         """One chunk of decode steps or speculative cycles, then host-side
         bookkeeping. The device carries tokens/done/remaining between
         chunks; the host mirrors go up only when admission or eviction
-        changed them, and the chunk's tokens come back in one fetch."""
-        bufs = self._bufs
-        if self._dirty:
-            bufs.upload(self._tokens, self._temps, self._done,
-                        self._remaining)
-            self._dirty = False
+        changed them, and the chunk's tokens come back in one fetch. Rank 0
+        decides the chunk (and on a mesh announces it), :meth:`_run_chunk`
+        runs it."""
         # Chunk policy: an oversized chunk is harmless to correctness (rows
         # freeze on device), so the only reason to run a small one is
         # admission latency: a finished row is refilled only at a sync.
@@ -1186,7 +1297,20 @@ class Engine:
         n_units = min(self.chunk_steps if queued else self.chunk_steps_max,
                       owed)
         if k > 0 and self._draft_stale:
+            self._announce(_REPRIME)
             self._reprime_draft()
+        self._announce(_CHUNK, k, n_units, int(queued), n_active)
+        self._run_chunk(k, n_units, flavor, n_active)
+
+    def _run_chunk(self, k: int, n_units: int, flavor: str,
+                   n_active: int) -> None:
+        """Run ``n_units`` units of kind ``k`` (0: plain steps) and replay
+        their tokens into the requests: the same on every rank."""
+        bufs = self._bufs
+        if self._dirty:
+            bufs.upload(self._tokens, self._temps, self._done,
+                        self._remaining)
+            self._dirty = False
         # timed after the re-prime: the bandit estimates each arm's steady
         # rate, and a switch-only re-prime would sink the speculative arm
         t_chunk = time.perf_counter()
@@ -1280,22 +1404,34 @@ class Engine:
             self._serve()
 
     def _serve(self) -> None:
+        if not self.leader:
+            self._follow()
+            return
         while True:
             with self._cv:
+                beat = True
                 while (
                     not self._stop
                     and not self._queue
                     and all(r is None for r in self._slot_req)
+                    and beat
                 ):
-                    self._cv.wait()
-                if self._stop:
+                    beat = self._cv.wait(
+                        self.HEARTBEAT_S if self.mesh is not None else None)
+                stop = self._stop
+                if stop:
                     for r in self._slot_req:
                         if r is not None:
                             r._finish("engine stopped")
                     for r in self._queue:
                         r._finish("engine stopped")
                     self._queue.clear()
-                    return
+            if stop:
+                self._announce(_STOP)
+                return
+            if not beat:  # idle on a mesh: keep the followers' wait short
+                self._announce(_NOOP)
+                continue
             try:
                 # continuous batching: fill every free slot, then run one
                 # decode chunk for the active rows
@@ -1304,10 +1440,74 @@ class Engine:
                     self._decode_cycle()
             except Exception as e:  # fail requests, keep the engine alive
                 log.exception("engine cycle failed")
-                for i, r in enumerate(self._slot_req):
-                    if r is not None:
-                        r._finish(f"engine error: {e}")
-                        self._slot_req[i] = None
-                        self._done[i] = True
-                        self._temps[i] = 0.0
-                self._dirty = True
+                self._fail_rows(e)
+                self._announce(_RESET)
+
+    def _fail_rows(self, error) -> None:
+        for i, r in enumerate(self._slot_req):
+            if r is not None:
+                r._finish(f"engine error: {error}")
+                self._slot_req[i] = None
+                self._done[i] = True
+                self._temps[i] = 0.0
+        self._dirty = True
+
+    # -- the mesh's leader and followers ------------------------------------
+    def _announce(self, kind: int, *fields: int, tokens=()) -> None:
+        """Rank 0: broadcast the descriptor of the unit it is about to run
+        (nothing without a mesh). Every rank's loop runs the unit next."""
+        if self.mesh is None:
+            return
+        d = np.zeros(self._desc.shape, np.int64)
+        d[0] = kind
+        d[1:1 + len(fields)] = fields
+        d[_HEADER - 1] = self._seq
+        d[_HEADER:_HEADER + len(tokens)] = tokens
+        self._desc.copy_(torch.from_numpy(d))
+        dist.broadcast(self._desc, src=0)
+        self._seq += 1
+
+    def _receive(self) -> np.ndarray:
+        dist.broadcast(self._desc, src=0)
+        d = self._desc.cpu().numpy()
+        if d[_HEADER - 1] != self._seq:
+            raise RuntimeError(f"descriptor {d[_HEADER - 1]} from rank 0, "
+                               f"expected {self._seq}")
+        self._seq += 1
+        return d
+
+    def _follow(self) -> None:
+        """A follower's loop: run each unit rank 0 announces, on this
+        rank's shards, until the stop."""
+        admitted = []
+        while True:
+            d = self._receive()
+            kind = int(d[0])
+            if kind == _STOP:
+                break
+            try:
+                if kind == _ADMIT:
+                    slot, S, temp, budget, prime, last = (int(x)
+                                                          for x in d[1:7])
+                    req = Request([int(t) for t in d[_HEADER:_HEADER + S]],
+                                  budget, _bits_f64(temp))
+                    self.followed.append(req)
+                    self.requests_total += 1
+                    admitted.append(self._admit_one(req, slot, bool(prime)))
+                    if last:
+                        self._finish_admissions(admitted)
+                        admitted = []
+                elif kind == _REPRIME:
+                    self._reprime_draft()
+                elif kind == _CHUNK:
+                    k, n_units, queued, n_active = (int(x) for x in d[1:5])
+                    self._run_chunk(k, n_units,
+                                    "small" if queued else "large", n_active)
+                elif kind == _RESET:
+                    self._fail_rows("rank 0's cycle failed")
+            except Exception as e:  # the leader's reset keeps rows in step
+                log.exception("engine cycle failed")
+                self._fail_rows(e)
+        for r in self._slot_req:
+            if r is not None:
+                r._finish("engine stopped")

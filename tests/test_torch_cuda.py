@@ -1066,6 +1066,110 @@ def test_lse_cotangent_backward_at_2048(card, monkeypatch, path, causal):
         assert _row_err(a, b) <= TOL[torch.bfloat16]
 
 
+# -- sharded serving and the pipeline on a one-process NCCL mesh ------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """``make_mesh()`` (six axes of size 1) over an NCCL group of this one
+    process, torn down after the module's last test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from nanotpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavour", ["bf16", "kv_int8", "spec_f32"])
+def test_mesh_engine_graphed_equals_eager_and_plain(card, nccl_mesh,
+                                                    flavour):
+    """``Engine(mesh=)`` at world 1, its decode step and speculative cycles
+    captured with their NCCL collectives in them (tp all-reduces, the
+    logits' all-gather): greedy tokens equal to the same engine eager and
+    to the plain engine's, token for token (a group of one changes no
+    bit)."""
+    cfg, _, _, (params, _) = _serving_models(card)
+    kw = {}
+    if flavour == "bf16":
+        cfg, params = dataclasses.replace(cfg, dtype="bfloat16"), _bf16(params)
+    elif flavour == "kv_int8":
+        kw = dict(kv_int8=True)
+    else:
+        kw = _self_draft(params, cfg)
+    prompts = [[3, 1, 4, 1, 5], list(range(40)), [9], [7] * 60]
+    plain, _ = _engine_run(params, cfg, prompts, 24, **kw)
+    for graphs in (False, True):
+        outs, eng = _engine_run(params, cfg, prompts, 24, cuda_graphs=graphs,
+                                mesh=nccl_mesh, **kw)
+        assert outs == plain, graphs
+        assert eng.stats()["chips"] == 1
+        if graphs:
+            assert all(g.replays > 0 for g in eng.graphs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["flash", "ring"])
+def test_pipeline_step_at_512_equals_plain(card, nccl_mesh, attn):
+    """The pipelined step at pp=1 (M=4, S=512, the stacked tree placed on
+    the mesh) against the plain step from the same state on the same
+    batches, f32: losses within 1e-5, the updated parameters within 1e-4
+    (a third of one Adam step: the microbatches' products sum in another
+    order); flash forward and fused backward launched once a layer a
+    microbatch."""
+    from nanotpu_torch.parallel import pipeline as tpp
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.tree import map_tree
+
+    cfg, _, _ = _train_models(card, "llama", "float32")
+    cfg = dataclasses.replace(cfg, max_seq_len=512)
+    opt = train.make_optimizer()
+    base = train.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                                  device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 8, 513),
+                           generator=torch.Generator(device=card
+                                                     ).manual_seed(1),
+                           device=card)
+    plain = train.TrainState(map_tree(lambda t: t.detach().clone(),
+                                      base.params), opt.init(base.params), 0)
+    step = train.build_train_step(cfg, opt)
+    want = []
+    for row in tokens:
+        plain, loss = step(plain, row)
+        want.append(loss.item())
+    c = dataclasses.replace(cfg, attn_impl=attn)
+    stacked = tpp.stack_layers(map_tree(lambda t: t.detach().clone(),
+                                        base.params))
+    specs = tpp.llama_pp_param_specs(c)
+    state = train.place_state(
+        train.TrainState(stacked, opt.init(stacked), 0), c, nccl_mesh,
+        param_specs=specs)
+    pstep = train.build_train_step(
+        c, opt, loss_fn=tpp.make_pipelined_loss(nccl_mesh, 4),
+        mesh=nccl_mesh, param_specs=specs)
+    before = (flash_attention.launches, att.flash_bwd_fused.launches)
+    got = []
+    for row in tokens:
+        state, loss = pstep(state, row)
+        got.append(loss.item())
+    assert got == pytest.approx(want, abs=1e-5)
+    assert flash_attention.launches - before[0] == 3 * 4 * cfg.n_layers
+    assert att.flash_bwd_fused.launches - before[1] == 3 * 4 * cfg.n_layers
+    mine = tpp.unstack_layers(map_tree(lambda t: t.full_tensor().detach(),
+                                       state.params))
+    for a, b in zip(leaves(mine), leaves(plain.params)):
+        assert (a - b).abs().max() <= 1e-4
+
+
 @pytest.mark.cuda
 def test_uncapturable_train_step_raises(card):
     """A step with a host sync in its loss captures nothing: the capture

@@ -66,9 +66,12 @@ def test_importing_every_module_loads_no_jax_or_nanotpu():
             ("quant", "speculative", "distill", "mixtral")} <= loaded
     assert {"nanotpu_torch.serving.graphs",
             "nanotpu_torch.serving.bench"} <= loaded
+    assert {"nanotpu_torch.parallel.infer",
+            "nanotpu_torch.parallel.pipeline"} <= loaded
     assert {p.name for p in PORT_FILES} >= {"quant.py", "speculative.py",
                                             "distill.py", "graphs.py",
-                                            "bench.py", "mixtral.py"}
+                                            "bench.py", "mixtral.py",
+                                            "infer.py", "pipeline.py"}
 
 
 def test_entry_points_raise_without_a_card_or_an_explicit_cpu():

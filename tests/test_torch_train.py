@@ -237,18 +237,26 @@ def test_cli_raises_without_a_card(monkeypatch):
 @pytest.mark.parametrize("argv,want", [
     (["--tp", "2"], "does not divide 1 devices"),
     (["--dp", "2"], "mesh 2x1x1x1x1x1 needs 2 devices, have 1"),
-    (["--sp", "2"], "does not divide 1 devices"), (["--pp", "2"], "not ported"),
-    (["--microbatches", "4"], "not ported"),
+    (["--sp", "2"], "does not divide 1 devices"),
+    (["--pp", "2"], "fsdp*tp*ep*sp*pp=2 does not divide 1 devices"),
+    (["--microbatches", "4"], None),
     (["--steps", "10", "--fuse-steps", "4"], "must be a multiple"),
     (["--model", "mixtral", "--remat"],
      "--remat is wired for the dense llama stack only"),
     (["--preset", "nope"], "no preset"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, want, capsys):
-    """In one process, nanotpu's errors for a mesh larger than the world;
-    the pipeline flags, which the port has not ported; what nanotpu refuses
-    too: a step count that is not a whole number of fused calls, ``--remat``
-    on Mixtral and a preset it lacks."""
+    """In one process, nanotpu's errors for a mesh larger than the world
+    (``--pp 2`` among them); what nanotpu refuses too: a step count that is
+    not a whole number of fused calls, ``--remat`` on Mixtral and a preset
+    it lacks. ``--microbatches`` without ``--pp`` is nanotpu's no-op: the
+    plain step trains (``want`` None)."""
+    if want is None:
+        out = ttrain.run(["--device", "cpu", "--steps", "2", "--seq", "33"]
+                         + argv)
+        assert [s for s, _ in out["losses"]] == [1, 2]
+        assert out["mesh"] is None
+        return
     with pytest.raises(SystemExit):
         ttrain.run(["--device", "cpu"] + argv)
     assert want in capsys.readouterr().err
