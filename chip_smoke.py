@@ -150,15 +150,37 @@ them:
     ``/metrics``) and measurements; co-batched equal to one at a time,
     graphed equal to an eager twin (decode tokens/s and idle share of
     each); then int8 weights and KV cache: tokens/s, parameter bytes and
-    the share of greedy tokens equal to bf16's.
+    the share of greedy tokens equal to bf16's;
+15. MoE mesh step: the Mixtral training phase's model and batches (2
+    layers at 8x7B's widths, B=4, S=2048, flash) through
+    ``build_train_step(loss_fn=mixtral.loss_fn, mesh=mesh)`` on a
+    one-process NCCL mesh, the state placed by nanotpu's Mixtral specs
+    (experts over ep): routing decisions on the first batch equal to the
+    plain forward's; 10 steps, each step's loss within 0.02 nats of the
+    plain loss of the same state on the same batch, and the first two
+    within 0.02 of the plain step's from the same initial state (its
+    state freed before the mesh state is drawn; later steps part by bf16
+    routing chaos and are printed, not held); launches exact, tokens/s
+    and peak memory of each;
+16. MoE pipeline: the same model as nanotpu's stacked tree at pp=1, 4
+    microbatches, 10 steps, against the plain step on the mean of
+    ``mixtral.loss_fn`` over the same microbatches (capacity and the aux
+    loss are per microbatch), held as the mesh step is, launches exact,
+    tokens/s and peak memory;
+17. MoE mesh serving: ``Engine(mesh=)`` serving Mixtral's 4 layers at
+    8x7B's widths (8 slots, graphed), its weights placed from a tree on
+    the CPU after the plain engine's copy on the card is freed: greedy
+    tokens and prefill drops equal to the plain engine's, decode tokens/s
+    of each, and peak memory under 1.5x the weights' bytes.
 
 Each phase's wall seconds are printed after the last phase. The last two
 lines are the kernel table and the device record, as JSON.
 Each path (serving, int8 serving, graphs, distill, speculative, training,
 two-pass, fused training, graphed two-pass, Mixtral's training, fused
 training, serving drive and serving rounds, the ring's two cases, the
-mesh step with flash and with the ring, the pipeline with each, and the
-mesh engines: flagship, 8B and speculative) counts its kernel launches
+mesh step with flash and with the ring, the pipeline with each, the
+mesh engines: flagship, 8B and speculative, and the MoE mesh step,
+pipeline and mesh engine) counts its kernel launches
 from 0 and reads them just after it ran; the table gives each path's count
 and their sum. A decode graph captures no flash launch, so each serving
 path's count stays exact: the forward kernel once a layer for each
@@ -174,6 +196,7 @@ Run:  python3 chip_smoke.py     (one CUDA card and nvcc; builds on first use)
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -3032,6 +3055,348 @@ def mixtral_serving_phase(card: str) -> dict:
     return out
 
 
+#: the MoE mesh phases: steps of the mesh step and of the pipeline, and
+#: the pipeline's microbatches (B=4 splits into microbatches of one row).
+#: bf16 MoE training from a random init is chaotic: a last-bit difference
+#: in a weight (the fused backward's dq sums in no fixed order) flips a
+#: token's expert a few steps later, and two runs of the same step part
+#: by ~0.1 nats within 10 steps. So each step's loss is held against the
+#: plain loss of the same state on the same batch, and the trajectory
+#: against the plain step's for its first MOE_SAME_STEPS steps only (the
+#: first update); the rest of the trajectory is printed, not held.
+MOE_MESH_STEPS, MOE_PIPE_MICRO, MOE_SAME_STEPS = 10, 4, 2
+
+
+def routing_of(fn) -> tuple:
+    """``fn()``'s result and the routing decisions it took: per call of
+    ``mixtral.route_decisions``, per choice, (expert, capacity slot,
+    kept)."""
+    from nanotpu_torch.models import mixtral
+
+    route, seen = mixtral.route_decisions, []
+
+    def recording(logits, cfg, capacity=None):
+        choices, aux, C = route(logits, cfg, capacity)
+        seen.append([(c[0].argmax(-1), c[1], c[2]) for c in choices])
+        return choices, aux, C
+
+    mixtral.route_decisions = recording
+    try:
+        return fn(), seen
+    finally:
+        mixtral.route_decisions = route
+
+
+def same_routing(got: list, want: list) -> dict:
+    """Raises unless two runs took the same decisions: each token's
+    experts, which choices kept a slot and the slots they kept; returns
+    the count of choices compared and of those dropped."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"routing: {len(got)} calls against "
+                             f"{len(want)}")
+    n = dropped = 0
+    for a, b in zip(got, want):
+        for (ge, gp, gk), (we, wp, wk) in zip(a, b):
+            if not (torch.equal(ge, we) and torch.equal(gk, wk)
+                    and torch.equal(gp[wk], wp[wk])):
+                raise AssertionError("routing decisions differ")
+            n += wk.numel()
+            dropped += int((~wk).sum())
+    return {"choices": n, "dropped": dropped}
+
+
+def moe_train_drive(step, state, batches, probe=None) -> dict:
+    """``step`` over ``batches`` from ``state``: its losses, steady tokens/s
+    (the steps' own time, each between two synchronizations, the first
+    step left out), launches counted from 0 over every step, and peak
+    memory; with ``probe``, ``probe(state, tokens)`` (the plain loss of
+    the state about to step) before each step, outside the timed
+    windows and the launch counts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, probes, steady = [], [], 0.0
+    probed = dict.fromkeys(read_launches(), 0)  # the probes' own launches
+    for i, tokens in enumerate(batches):
+        if probe is not None:
+            before = read_launches()
+            with torch.no_grad():
+                probes.append(probe(state, tokens).item())
+            for name, n in read_launches().items():
+                probed[name] += n - before[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        torch.cuda.synchronize()
+        if i:
+            steady += time.perf_counter() - t0
+        losses.append(loss.item())
+    B, S = batches.shape[1], batches.shape[2] - 1
+    return {"losses": losses, "probes": probes,
+            "tok_s": (len(batches) - 1) * B * S / steady,
+            "launches": {name: n - probed[name]
+                         for name, n in read_launches().items()},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def hold_moe_run(label: str, run: dict, plain: dict, card: str) -> None:
+    """Prints ``run`` beside ``plain`` and raises unless every loss is
+    finite, each within PIPE_LOSS_TOL of the plain loss of the same state
+    (``run["probes"]``) and the first MOE_SAME_STEPS within PIPE_LOSS_TOL
+    of the plain step's."""
+    losses, probes = run["losses"], run["probes"]
+    same_state = max(abs(a - b) for a, b in zip(losses, probes))
+    first = max(abs(a - b) for a, b in zip(losses[:MOE_SAME_STEPS],
+                                           plain["losses"]))
+    drift = max(abs(a - b) for a, b in zip(losses, plain["losses"]))
+    run.update(same_state_diff=same_state, first_steps_diff=first,
+               trajectory_diff=drift)
+    print(f"{label} on {card}: losses {[round(x, 4) for x in losses]}; "
+          f"largest difference from the plain loss of the same state "
+          f"{same_state:.3g}, from the plain step's over the first "
+          f"{MOE_SAME_STEPS} steps {first:.3g} (tol {PIPE_LOSS_TOL} each); "
+          f"over all {len(losses)} steps {drift:.3g} (not held: bf16 "
+          f"routing chaos); {run['tok_s']:.1f} tokens/s (plain "
+          f"{plain['tok_s']:.1f}); peak memory {run['peak_mem_gib']:.3f} "
+          f"GiB (plain {plain['peak_mem_gib']:.3f}); launches "
+          f"{run['launches']}")
+    if not (all(np.isfinite(losses)) and len(probes) == len(losses)
+            and same_state <= PIPE_LOSS_TOL and first <= PIPE_LOSS_TOL):
+        raise AssertionError(f"{label}: losses {losses}, plain losses of "
+                             f"the same states {probes}, plain step's "
+                             f"{plain['losses']}")
+
+
+def moe_mesh_training_phase(card: str) -> dict:
+    """Mixtral's mesh step on a one-process NCCL mesh at 8x7B's widths,
+    MOE_TRAIN_LAYERS layers, B=4, S=2048, flash: the plain step
+    (``build_train_step(loss_fn=mixtral.loss_fn)``) MOE_MESH_STEPS steps,
+    its state then freed; the same state drawn again and placed as
+    DTensors by nanotpu's Mixtral specs (the experts' stacked axis over
+    ep), and ``build_train_step(loss_fn=mixtral.loss_fn, mesh=mesh)`` on
+    the same batches. The mesh step issues the ep collectives on groups of
+    one (the copy into and the all-reduce out of a rank's experts), the
+    gather of the router logits over the data axes and the sum of the
+    expert inputs over them. Held: routing decisions on the first batch
+    equal to the plain forward's; each step's loss against the plain loss
+    of the same state and the first steps' against the plain step's
+    (``hold_moe_run``); launches exact (one forward and one fused backward
+    a layer a step); tokens/s and peak memory of each."""
+    import torch.distributed as dist
+
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.parallel import mesh as tmesh
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.tree import leaves
+
+    cfg = mixtral_config(MOE_TRAIN_LAYERS)
+    opt = train.make_optimizer()
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(1),
+                           table, (MOE_MESH_STEPS, MOE_TRAIN_B, TRAIN_S + 1))
+
+    def fresh():
+        return train.init_train_state(
+            torch.Generator(device="cuda").manual_seed(0), cfg, opt,
+            device="cuda", init_fn=mixtral.init_params)
+
+    state = fresh()
+    with torch.no_grad():
+        _, want_routing = routing_of(
+            lambda: mixtral.loss_fn(state.params, batches[0], cfg))
+    plain = moe_train_drive(train.build_train_step(
+        cfg, opt, loss_fn=mixtral.loss_fn), state, batches)
+    check_train_launches(plain["launches"], cfg.n_layers, MOE_MESH_STEPS,
+                         False, "plain Mixtral step")
+    del state
+    torch.cuda.empty_cache()
+    out = {"plain": plain}
+    with nccl_world() as mesh:
+        state = train.place_state(fresh(), cfg, mesh)
+        shard = tmesh.Shards(mesh, tmesh.mixtral_param_specs(cfg))
+        with torch.no_grad():
+            _, got_routing = routing_of(lambda: mixtral.loss_fn(
+                tmesh.local(state.params), batches[0], cfg, shard=shard))
+        routing = same_routing(got_routing, want_routing)
+        w_gate = state.params["layers"][0]["moe"]["w_gate"]
+        step = train.build_train_step(cfg, opt, loss_fn=mixtral.loss_fn,
+                                      mesh=mesh)
+        run = moe_train_drive(step, state, batches, probe=lambda st, t: (
+            mixtral.loss_fn(tmesh.local(st.params), t, cfg)))
+        label = (f"MoE mesh step ({dist.get_backend()}, world 1, "
+                 f"{cfg.n_layers} layers at 8x7B width)")
+        print(f"{label}: w_gate {type(w_gate).__name__} "
+              f"{list(w_gate.placements)} on {mesh.mesh_dim_names}; routing "
+              f"of the first batch equal to the plain forward's "
+              f"({routing['choices']} choices, {routing['dropped']} dropped "
+              f"by capacity); a step {run['launches']['flash_fwd'] // MOE_MESH_STEPS} "
+              f"forward and {run['launches']['flash_bwd_fused'] // MOE_MESH_STEPS} "
+              f"fused backward launches")
+        hold_moe_run(label, run, plain, card)
+        check_train_launches(run["launches"], cfg.n_layers, MOE_MESH_STEPS,
+                             False, label)
+        if not all(type(t).__name__ == "DTensor"
+                   for t in leaves(state.params)):
+            raise AssertionError(f"{label}: parameters left their mesh")
+        out["mesh"] = {**run, "routing": routing}
+        del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_pipeline_phase(card: str) -> dict:
+    """The pipelined Mixtral step at pp=1 on a one-process NCCL mesh, 8x7B's
+    widths at MOE_TRAIN_LAYERS layers as nanotpu's stacked tree (placed by
+    ``mixtral_pp_param_specs``), B=4, S=2048, MOE_PIPE_MICRO microbatches,
+    MOE_MESH_STEPS steps through ``make_pipelined_loss(mesh, M,
+    "mixtral")``; against the plain step on the mean of ``mixtral.loss_fn``
+    over the same microbatches (capacity and the aux loss are per
+    microbatch, so the whole batch's loss is not the target), its state
+    freed first. Held as ``hold_moe_run`` holds the mesh step (the plain
+    loss of each state: the microbatch mean on the unstacked tree);
+    launches exact (one forward and one fused backward a layer a
+    microbatch a step); tokens/s and peak memory of each."""
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.parallel import mesh as tmesh
+    from nanotpu_torch.parallel import pipeline as tpp
+    from nanotpu_torch.parallel import train
+
+    cfg = mixtral_config(MOE_TRAIN_LAYERS)
+    M = MOE_PIPE_MICRO
+    opt = train.make_optimizer()
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(1),
+                           table, (MOE_MESH_STEPS, MOE_TRAIN_B, TRAIN_S + 1))
+
+    def averaged(params, tokens, cfg):
+        mb = tokens.shape[0] // M
+        return sum(mixtral.loss_fn(params, tokens[i * mb:(i + 1) * mb], cfg)
+                   for i in range(M)) / M
+
+    def fresh(init):
+        return train.init_train_state(
+            torch.Generator(device="cuda").manual_seed(0), cfg, opt,
+            device="cuda", init_fn=init)
+
+    plain = moe_train_drive(train.build_train_step(cfg, opt,
+                                                   loss_fn=averaged),
+                            fresh(mixtral.init_params), batches)
+    torch.cuda.empty_cache()
+    check_train_launches(plain["launches"], cfg.n_layers * M, MOE_MESH_STEPS,
+                         False, "microbatch-averaged plain step")
+    with nccl_world() as mesh:
+        specs = tpp.mixtral_pp_param_specs(cfg)
+        state = train.place_state(fresh(lambda c, g, device=None: (
+            tpp.stack_layers(mixtral.init_params(c, g, device=device)))),
+            cfg, mesh, param_specs=specs)
+        step = train.build_train_step(
+            cfg, opt, loss_fn=tpp.make_pipelined_loss(mesh, M, "mixtral"),
+            mesh=mesh, param_specs=specs)
+        run = moe_train_drive(step, state, batches, probe=lambda st, t: (
+            averaged(tpp.unstack_layers(tmesh.local(st.params)), t, cfg)))
+        del state, step
+    torch.cuda.empty_cache()
+    label = (f"MoE pipeline (pp=1, M={M}, {cfg.n_layers} layers at 8x7B "
+             f"width)")
+    hold_moe_run(label, run, plain, card)
+    check_train_launches(run["launches"], cfg.n_layers * M, MOE_MESH_STEPS,
+                         False, label)
+    return {"plain": plain, "pipeline": run}
+
+
+def moe_mesh_serving_phase(card: str) -> dict:
+    """``Engine(mesh=)`` on a one-process NCCL mesh serving Mixtral 8x7B's
+    widths at MOE_SERVE_LAYERS layers (bf16, flash prefill, SLOTS slots,
+    max_len MAX_LEN, graphed) against the plain engine on the same weights:
+    the plain engine runs first, from the tree on the card; the tree is
+    then copied to the CPU and every copy on the card freed, and the mesh
+    engine places it from the CPU shard by shard, so that its peak memory
+    shows one copy of the weights. Held: greedy tokens of prompts of
+    PROMPT_LENS tokens and of SLOTS x 64-token prompts x MOE_NEW equal to
+    the plain engine's, the same ``moe_prefill_dropped_total``, the decode
+    graphs replayed, launches exact (the forward kernel once a layer a
+    prefill, warm-up included); decode tokens/s of each, peak memory of the
+    mesh engine against the weights' bytes."""
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.models.quant import param_bytes
+    from nanotpu_torch.serving.engine import Engine
+    from nanotpu_torch.tree import leaves, map_tree
+
+    cfg = mixtral_config(MOE_SERVE_LAYERS)
+    rng = np.random.default_rng(12)
+    greedy = [rng.integers(0, cfg.vocab_size, n).tolist()
+              for n in PROMPT_LENS]
+    rounds = [rng.integers(0, cfg.vocab_size, 64).tolist()
+              for _ in range(SLOTS)]
+
+    def serve(params, **kw):
+        t0 = time.perf_counter()  # placement, warm-up and capture
+        eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=0,
+                     device="cuda", **kw)
+        try:
+            eng.wait_warm()
+            ready_s = time.perf_counter() - t0
+            outs, _ = decode_round(eng, greedy, MOE_NEW // 4)
+            round_outs, tok_s = decode_round(eng, rounds, MOE_NEW)
+            graphs = graph_record(eng, "MoE mesh serving" if kw else
+                                  "MoE plain serving")
+        finally:
+            eng.stop()
+        return {"outs": outs, "round_outs": round_outs, "tok_s": tok_s,
+                "ready_s": ready_s, "graphs": graphs,
+                "drops": eng.moe_prefill_dropped_total,
+                "requests": eng.requests_total}
+
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    weight_bytes = param_bytes(params)
+    plain = serve(params)
+    on_cpu = map_tree(lambda t: t.cpu(), params)
+    del params
+    gc.collect()  # the stopped plain engine, which holds the card's tree
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with nccl_world() as mesh:
+        reset_launches()
+        meshed = serve(on_cpu, mesh=mesh)
+        launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del on_cpu
+    label = (f"MoE mesh serving ({cfg.n_layers} layers at 8x7B width, "
+             f"NCCL world 1)")
+    prefills = meshed["requests"] + 1  # and the warm-up's
+    want = {**dict.fromkeys(launches, 0),
+            "flash_fwd": cfg.n_layers * prefills}
+    print(f"{label} on {card}: greedy tokens of prompts of {PROMPT_LENS} "
+          f"tokens and of {SLOTS} x 64 x {MOE_NEW} equal the plain engine's: "
+          f"{meshed['outs'] == plain['outs'] and meshed['round_outs'] == plain['round_outs']}; "
+          f"decode tok/s at {SLOTS} busy slots mesh {meshed['tok_s']:.1f}, "
+          f"plain {plain['tok_s']:.1f}; moe_prefill_dropped_total mesh "
+          f"{meshed['drops']}, plain {plain['drops']}; ready in "
+          f"{meshed['ready_s']:.1f} s (placed from the CPU; plain "
+          f"{plain['ready_s']:.1f} s); peak memory {peak:.3f} GiB against "
+          f"{weight_bytes / 2**30:.3f} GiB of weights; launches {launches}")
+    if (meshed["outs"] != plain["outs"]
+            or meshed["round_outs"] != plain["round_outs"]):
+        raise AssertionError(f"{label}: greedy tokens differ from the plain "
+                             f"engine's")
+    if meshed["drops"] != plain["drops"]:
+        raise AssertionError(f"{label}: prefill drops {meshed['drops']} "
+                             f"against {plain['drops']}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    if not peak * 2**30 < 1.5 * weight_bytes:
+        raise AssertionError(f"{label}: peak memory {peak:.3f} GiB holds the "
+                             f"weights ({weight_bytes / 2**30:.3f} GiB) twice")
+    return {"plain": {k: plain[k] for k in ("tok_s", "drops", "ready_s")},
+            "mesh": {k: meshed[k] for k in ("tok_s", "drops", "ready_s")},
+            "peak_mem_gib": peak, "weight_gib": weight_bytes / 2**30,
+            "launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3092,6 +3457,9 @@ def main() -> None:
     moe_train = timed(mixtral_training_phase, card)
     moe_fused = timed(mixtral_fused_training_phase, card, moe_train["losses"])
     moe_serve = timed(mixtral_serving_phase, card)
+    moe_meshed = timed(moe_mesh_training_phase, card)
+    moe_piped = timed(moe_pipeline_phase, card)
+    moe_mesh_served = timed(moe_mesh_serving_phase, card)
     print(f"phase wall seconds on {card}: {phase_s}; all phases "
           f"{sum(phase_s.values()):.1f} s")
 
@@ -3107,6 +3475,9 @@ def main() -> None:
                "mixtral_fused_train": moe_fused["launches"],
                "mixtral_serving": moe_serve["launches"],
                "mixtral_rounds": moe_serve["graph_launches"],
+               "moe_mesh_train": moe_meshed["mesh"]["launches"],
+               "moe_pipeline": moe_piped["pipeline"]["launches"],
+               "moe_mesh_serving": moe_mesh_served["launches"],
                **ring["launches"], **meshed["launches"],
                **piped["launches"], **mesh_served["launches"]}
 

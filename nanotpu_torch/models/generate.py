@@ -20,7 +20,10 @@ KV/tp kv heads (the GQA ratio unchanged), the flash kernel on that head
 shard, a tp all-reduce after ``wo`` and ``w_down``, weights gathered over
 fsdp at use, the vocab-parallel embedding, and the vocab-split head's
 logits all-gathered over tp so that every rank samples the same token from
-the same generator. The cache holds the rank's kv heads only.
+the same generator. The cache holds the rank's kv heads only. A Mixtral
+layer runs its E/ep experts a rank, each split over tp, and all-reduces
+the combine over ep; every rank holds every row, so it routes them as one
+device does.
 """
 
 from __future__ import annotations
@@ -87,14 +90,14 @@ def _attend_cached(q, k_cache, v_cache, valid_len: int):
 
 def ffn(layer, x, cfg, full_capacity: bool, drop_acc=None, shard=None):
     """The FFN half of a cached layer on x [B,S,D] (its norm included):
-    the SwiGLU MLP of a Llama layer (tp-split with ``shard``), or the routed
-    experts of a Mixtral layer (``moe``), whose aux loss inference drops.
-    ``full_capacity`` and ``drop_acc`` go to
-    :func:`~nanotpu_torch.models.mixtral.moe_block`."""
+    the SwiGLU MLP of a Llama layer, or the routed experts of a Mixtral
+    layer (``moe``), whose aux loss inference drops; with ``shard``, split
+    over tp (and a Mixtral layer's experts over ep). ``full_capacity`` and
+    ``drop_acc`` go to :func:`~nanotpu_torch.models.mixtral.moe_block`."""
     if "moe" in layer:
         out, _aux = moe_block(
             layer["moe"], rms_norm(x, layer["moe_norm"], cfg.norm_eps), cfg,
-            full_capacity=full_capacity, drop_acc=drop_acc,
+            full_capacity=full_capacity, drop_acc=drop_acc, shard=shard,
         )
         return out
     return mlp(layer["mlp"], rms_norm(x, layer["mlp_norm"], cfg.norm_eps),

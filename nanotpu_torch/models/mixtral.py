@@ -9,8 +9,17 @@ shape, so a decode step that routes stays capturable as a CUDA graph.
 Experts are stacked on a leading ``E`` axis (``w_gate``/``w_up``
 ``[E, dim, ffn]``, ``w_down`` ``[E, ffn, dim]``); the ``router`` is f32.
 
-nanotpu's sequence-parallel routing (``seq_axis``) and its mesh
-constraints are not ported: the port runs on one device.
+On a mesh the functions take ``shard``
+(:class:`nanotpu_torch.parallel.mesh.Shards`), as Llama's do, and run on
+this rank's shards: its rows and sequence block of the tokens, weights
+gathered over fsdp at use, attention's heads and each expert's ffn split
+over tp, and E/ep experts a rank. Routing binds capacity over the global
+token set, as nanotpu's one program does (and as its ``seq_axis`` branch
+does by hand): the [T, E] router logits are gathered over the axes that
+split the tokens, every rank decides on the whole, expands the [T, E, C]
+dispatch and combine for its own tokens only, and the expert inputs sum
+over those axes. Over ep each rank expands and dispatches to its own
+experts only, and the combine's partial sums are all-reduced.
 """
 
 from __future__ import annotations
@@ -223,64 +232,117 @@ def route_topk(logits: torch.Tensor, cfg: MixtralConfig,
     return dispatch, combine, aux
 
 
+def _decide(logits: torch.Tensor, B: int, S: int, cfg: MixtralConfig,
+            full_capacity: bool, shard=None):
+    """(choices, aux, C) of :func:`route_decisions` for this rank's T = B*S
+    tokens, from their router ``logits`` [T, E]. With a ``shard`` whose
+    tokens are split, the decisions are taken on the global token set (the
+    logits gathered, capacity from its size, slots won in its order) and
+    this rank's rows of them returned."""
+    if shard is None or not shard.split_tokens:
+        T = B * S
+        return route_decisions(
+            logits, cfg, capacity=T * cfg.top_k if full_capacity else None)
+    whole = shard.all_tokens(logits.reshape(B, S, -1))
+    T = whole.shape[0] * whole.shape[1]
+    choices, aux, C = route_decisions(
+        whole.reshape(T, -1), cfg,
+        capacity=T * cfg.top_k if full_capacity else None)
+    mine = [tuple(shard.own_tokens(part, B, S) for part in choice)
+            for choice in choices]
+    return mine, aux, C
+
+
 def moe_block(params: dict, x: torch.Tensor, cfg: MixtralConfig,
-              full_capacity: bool = False,
-              drop_acc: list | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+              full_capacity: bool = False, drop_acc: list | None = None,
+              shard=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D], aux loss): dense dispatch and combine
     einsums around the experts' SwiGLU, batched over E.
 
     ``full_capacity`` sets C = T * top_k, so no token is dropped and each
     row routes independently of its batch-mates: the decode paths use it.
     ``drop_acc`` is a list the block appends each token's dropped choices
-    to ([T] int32: top_k less its kept dispatch slots), so that serving
-    prefill can leave the pad positions out of its count."""
+    to ([T] int32: top_k less its kept choices), so that serving prefill
+    can leave the pad positions out of its count.
+
+    With ``shard``, ``x`` holds this rank's tokens and ``params`` its
+    experts (E/ep of them, each at ffn/tp): routing is global over the
+    tokens (:func:`_decide`), the aux loss the whole batch's on every
+    rank; the dispatch and combine are expanded for this rank's experts
+    only ([T, E/ep, C]), the expert inputs sum over the axes that split
+    the tokens, the SwiGLU is the Megatron pair over tp, and the
+    combine's output is all-reduced over ep. Each choice's combine weight
+    ([T]) enters through the ep copy, so that its gradient, and the
+    router's, sums every ep rank's experts' share."""
     B, S, D = x.shape
     T = B * S
     flat = x.reshape(T, D)
     logits = flat.float() @ params["router"]  # [T, E]
-    dispatch, combine, aux = route_topk(
-        logits, cfg, capacity=T * cfg.top_k if full_capacity else None
-    )
+    choices, aux, C = _decide(logits, B, S, cfg, full_capacity, shard)
     if drop_acc is not None:
-        # a kept choice puts exactly 1.0 in its token's dispatch rows
-        drop_acc.append((cfg.top_k - dispatch.sum(dim=(1, 2))).to(torch.int32))
+        kept = sum(keep.to(torch.int32) for _, _, keep, _ in choices)
+        drop_acc.append(cfg.top_k - kept)
+    if shard is not None:
+        mine = shard.experts(cfg.n_experts)
+        choices = [(onehot[:, mine], pos, keep, shard.ep_in(weight))
+                   for onehot, pos, keep, weight in choices]
+        flat = shard.ep_in(flat)
+    dispatch, combine = expand_routing(choices, C)
     dt = x.dtype
     # tokens into per-expert buffers: [E, C, D]
     expert_in = torch.einsum("tec,td->ecd", dispatch.to(dt), flat)
+    if shard is not None:
+        expert_in = shard.tp_in(shard.sum_tokens(expert_in))
     gate = F.silu(torch.einsum("ecd,edf->ecf", expert_in,
                                _w(params["w_gate"], dt)))
     up = torch.einsum("ecd,edf->ecf", expert_in, _w(params["w_up"], dt))
     expert_out = torch.einsum("ecf,efd->ecd", gate * up,
                               _w(params["w_down"], dt))
+    if shard is not None:
+        expert_out = shard.tp_out(expert_out)
     # back to the tokens with their routing weights: [T, D]
     out = torch.einsum("tec,ecd->td", combine.to(dt), expert_out)
+    if shard is not None:
+        out = shard.ep_out(out)
     return out.reshape(B, S, D), aux
 
 
 def decoder_layer(layer: dict, x: torch.Tensor, cfg: MixtralConfig,
-                  cos: torch.Tensor, sin: torch.Tensor):
+                  cos: torch.Tensor, sin: torch.Tensor, shard=None):
     """Attention residual, then routed-experts residual; returns (x, this
-    layer's router aux loss)."""
+    layer's router aux loss). ``shard``: on this rank's shards (the
+    layer's weights gathered over fsdp already)."""
     x = x + attention(layer["attn"],
                       rms_norm(x, layer["attn_norm"], cfg.norm_eps),
-                      cfg.as_llama(), cos, sin)
+                      cfg.as_llama(), cos, sin, shard)
     moe_out, aux = moe_block(
-        layer["moe"], rms_norm(x, layer["moe_norm"], cfg.norm_eps), cfg)
+        layer["moe"], rms_norm(x, layer["moe_norm"], cfg.norm_eps), cfg,
+        shard=shard)
     return x + moe_out, aux
 
 
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig,
-                  positions: torch.Tensor | None = None):
+                  positions: torch.Tensor | None = None, shard=None):
     """tokens [B, S] int -> (final-norm hidden states [B, S, D], total aux
-    loss)."""
+    loss). With ``shard``, tokens are this rank's rows and sequence block
+    over sp, at positions from ``rank * S``, and the aux loss is the global
+    batch's."""
     S = tokens.shape[1]
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        start = 0 if shard is None else shard.rank["sp"] * S
+        positions = torch.arange(start, start + S, dtype=torch.int32,
+                                 device=tokens.device)
     cos, sin = rope_freqs(cfg.as_llama(), positions)
-    x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
+    if shard is None:
+        x = embed_lookup(params["embed"], tokens, cfg.torch_dtype)
+    else:
+        x = shard.embed(shard.use(params["embed"], shard.specs["embed"]),
+                        tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params["layers"]:
-        x, aux = decoder_layer(layer, x, cfg, cos, sin)
+    for i, layer in enumerate(params["layers"]):
+        if shard is not None:  # ZeRO-3: each layer's weights gathered here
+            layer = shard.use(layer, shard.specs["layers"][i])
+        x, aux = decoder_layer(layer, x, cfg, cos, sin, shard)
         aux_total = aux_total + aux
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
@@ -292,12 +354,21 @@ def forward(params: dict, tokens: torch.Tensor, cfg: MixtralConfig,
     return linear(x, params["lm_head"]).float(), aux
 
 
-def loss_fn(params: dict, tokens: torch.Tensor,
-            cfg: MixtralConfig) -> torch.Tensor:
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: MixtralConfig,
+            shard=None) -> torch.Tensor:
     """Mean next-token NLL over tokens[:, :-1] -> tokens[:, 1:] plus
     ``router_aux_weight`` times the summed aux loss. The NLL is the Llama
     loss's chunked cross entropy: nanotpu's value, without the whole
-    [B, S, V] f32 logits."""
-    x, aux = hidden_states(params, tokens[:, :-1], cfg)
-    nll = next_token_nll(params["lm_head"], x, tokens[:, 1:])
+    [B, S, V] f32 logits. With ``shard`` (the mesh step's), ``tokens`` are
+    this rank's rows, each rank takes its sequence block over sp, and the
+    result is its share of the global loss, which sums over the data axes
+    to the whole: the aux loss, the whole batch's on every rank, counts
+    once a data shard's share."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if shard is not None:
+        inputs, targets = shard.seq_block(inputs), shard.seq_block(targets)
+    x, aux = hidden_states(params, inputs, cfg, shard=shard)
+    nll = next_token_nll(params["lm_head"], x, targets, shard)
+    if shard is not None:
+        aux = aux / shard.token_shards()
     return nll + cfg.router_aux_weight * aux

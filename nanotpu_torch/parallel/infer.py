@@ -9,11 +9,13 @@ decode paths (:mod:`nanotpu_torch.models.generate`,
 share:
 
 * **params** take the training specs (tp over heads, ffn and vocab, fsdp
-  over the other matmul axis: :func:`.mesh.llama_param_specs`), placed as
-  DTensors from the whole tree that every process holds. An fsdp > 1
-  inference mesh gathers each layer's weights at use (ZeRO-style decode).
-  int8 ``QArray`` leaves are placed member-wise: ``q`` under the weight's
-  spec, ``s`` under it with the contraction axis dropped
+  over the other matmul axis: :func:`.mesh.llama_param_specs`; a MoE
+  config's experts over ep as well, :func:`.mesh.mixtral_param_specs`),
+  placed as DTensors from the whole tree that every process holds, on the
+  card or on the CPU: each process keeps a copy of its own shard only. An
+  fsdp > 1 inference mesh gathers each layer's weights at use (ZeRO-style
+  decode). int8 ``QArray`` leaves are placed member-wise: ``q`` under the
+  weight's spec, ``s`` under it with the contraction axis dropped
   (:func:`.mesh.qarray_scale_spec`).
 * **KV caches** split the ``n_kv_heads`` axis over tp: each rank attends its
   own heads and the cache needs no collective. Batch, slot and position
@@ -22,16 +24,18 @@ share:
   gate/up products are column-parallel, ``wo`` and ``w_down`` row-parallel
   with a tp all-reduce after them, the embedding vocab-parallel, and the
   vocab-split head's logits are all-gathered over tp before sampling, so
-  every rank draws the same token.
+  every rank draws the same token. A MoE layer runs its E/ep experts a
+  rank and all-reduces the combine over ep. Every rank holds every row,
+  so routing needs no collective.
 
 nanotpu's ``constrain_cache`` has no counterpart: it pins the sharding of a
 cache that XLA builds inside a jitted function, and the port builds each
 rank's cache at its local shape (``n_kv_heads / tp`` heads) to begin with.
-Mixtral on a mesh (ep, expert-sharded decode) is not ported yet.
 """
 
 from __future__ import annotations
 
+import torch
 from torch.distributed.tensor import DTensor
 
 from nanotpu_torch.models.quant import QArray
@@ -39,30 +43,26 @@ from nanotpu_torch.parallel.mesh import (
     P,
     Shards,
     check_divisibility,
-    llama_param_specs,
+    check_moe_divisibility,
     local,
+    param_specs,
     placements_for,
     qarray_scale_spec,
 )
 from nanotpu_torch.tree import map_tree, rebuild
 
-#: what a Mixtral config on an inference mesh raises
-MOE_NOT_PORTED = ("Mixtral on a mesh is not ported yet: expert-parallel "
-                  "placement (ep) comes next in the port's queue")
-
-
 def infer_param_specs(cfg) -> dict:
     """PartitionSpec tree for an inference param tree: the training specs
-    (tp x fsdp) unchanged. A MoE config raises NotImplementedError."""
-    if hasattr(cfg, "n_experts"):
-        raise NotImplementedError(MOE_NOT_PORTED)
-    return llama_param_specs(cfg)
+    (tp x fsdp) unchanged; a MoE config (one with ``n_experts``) gets the
+    expert-sharded ones."""
+    return param_specs(cfg)
 
 
 def check_infer_divisibility(cfg, mesh) -> None:
     if hasattr(cfg, "n_experts"):
-        raise NotImplementedError(MOE_NOT_PORTED)
-    check_divisibility(cfg, mesh)
+        check_moe_divisibility(cfg, mesh)
+    else:
+        check_divisibility(cfg, mesh)
 
 
 def tree_specs(params, specs):
@@ -80,27 +80,38 @@ def tree_specs(params, specs):
 
 
 def _put(t, mesh, spec):
-    """``t``, whole on every process, as a DTensor: each keeps its shard (a
-    view of ``t`` where the shard is contiguous, so a mesh of one copies
-    nothing), no traffic. A dimension split over several axes splits
-    outermost first, as DTensor's do."""
+    """``t``, whole on every process, as a DTensor: each keeps its shard, no
+    traffic. A shard that is a strict part of ``t`` is a copy of its own
+    bytes (a view would keep the whole tensor alive); a shard that is the
+    whole of ``t`` on the mesh's device is ``t`` itself (a mesh of one
+    copies nothing). A tensor held elsewhere (a tree on the CPU, for a
+    mesh of cards) is moved shard by shard, so that no card holds the
+    whole tree. A dimension split over several axes splits outermost
+    first, as DTensor's do."""
     placements = placements_for(mesh, spec, t.dim())
     shard = t
     for axis, pl in enumerate(placements):
         if pl.is_shard():
             shard = shard.chunk(mesh.size(axis), pl.dim)[
                 mesh.get_local_rank(axis)]
+    device = torch.device(mesh.device_type)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    if shard.device != device:
+        shard = shard.to(device, memory_format=torch.contiguous_format)
+    elif shard.numel() < t.numel():
+        shard = shard.clone(memory_format=torch.contiguous_format)
     return DTensor.from_local(shard.contiguous(), mesh, placements,
                               run_check=False)
 
 
 def place_params(params, cfg, mesh, shared: dict | None = None):
     """A (possibly int8-quantized) whole param tree, the same on every
-    process, as DTensors on ``mesh`` by :func:`infer_param_specs`; QArray
-    leaves member-wise. A tensor the tree holds twice is placed once; pass
-    the same ``shared`` dict to place a second tree (a speculative draft)
-    whose tied tensors (embedding, final norm, head) are then the first
-    tree's DTensors."""
+    process, on the mesh's device or on the CPU, as DTensors on ``mesh`` by
+    :func:`infer_param_specs`; QArray leaves member-wise. A tensor the tree
+    holds twice is placed once; pass the same ``shared`` dict to place a
+    second tree (a speculative draft) whose tied tensors (embedding, final
+    norm, head) are then the first tree's DTensors."""
     check_infer_divisibility(cfg, mesh)
     done = {} if shared is None else shared
 
@@ -130,7 +141,7 @@ def on_mesh(params, cfg, mesh, shared: dict | None = None):
             shared[id(t)] = (t, local(t))
         return shared[id(t)][1]
 
-    return map_tree(one, params), Shards(mesh, specs)
+    return map_tree(one, params), Shards(mesh, specs, split_tokens=False)
 
 
 #: Per-layer cache entry [B|SLOTS, max_len, n_kv_heads, head_dim]: kv heads

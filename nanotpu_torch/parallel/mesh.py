@@ -11,15 +11,19 @@ and places parameters as DTensors by those specs. Axes, in nanotpu's order:
   (ZeRO-3: each weight gathered at use, its gradient reduce-scattered)
 * ``tp``   — tensor parallel over attention heads, ffn hidden and vocab
 * ``sp``   — sequence parallel, ring attention
-* ``ep``   — expert parallel (not ported: size 1)
+* ``ep``   — expert parallel: each rank holds E/ep of a MoE layer's
+  experts (their stacked leading axis)
 
 Where XLA inserts collectives from the shardings, the port's model runs on
 the local shards and :class:`Shards` issues them, each an autograd
 function whose backward is its transpose: the fsdp all-gather of a weight
 at its use (backward: reduce-scatter), tp's identity-forward copy
 (backward: all-reduce) and all-reduce (backward: identity), the same pair
-over pp around a pipeline, and the vocab-parallel embedding and cross
-entropy over tp.
+over pp around a pipeline and over ep around a rank's experts, and the
+vocab-parallel embedding and cross entropy over tp. MoE routing is the
+one decision over the global token set: the router logits are gathered
+over the axes that split the tokens (backward: reduce-scatter), and the
+experts' inputs summed over them (backward: the same sum).
 """
 
 from __future__ import annotations
@@ -96,7 +100,11 @@ def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, sp: int = 1,
                             mesh_dim_names=AXES)
 
 
-def axis_sizes(mesh: DeviceMesh) -> dict[str, int]:
+def axis_sizes(mesh) -> dict[str, int]:
+    """Each axis's size: of a DeviceMesh, or of a dict of sizes (axes it
+    does not name are of size 1)."""
+    if isinstance(mesh, dict):
+        return {a: mesh.get(a, 1) for a in AXES}
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
@@ -168,8 +176,17 @@ def mixtral_param_specs(cfg) -> dict:
     return _backbone_specs(cfg, layer)
 
 
-def check_divisibility(cfg, mesh: DeviceMesh) -> None:
-    """Fail fast on shardings the model shapes cannot honor."""
+def param_specs(cfg) -> dict:
+    """The spec tree of ``cfg``'s model: Mixtral's for a MoE config (one
+    with ``n_experts``), Llama's otherwise."""
+    if hasattr(cfg, "n_experts"):
+        return mixtral_param_specs(cfg)
+    return llama_param_specs(cfg)
+
+
+def check_divisibility(cfg, mesh) -> None:
+    """Fail fast on shardings the model shapes cannot honor (``mesh``: a
+    DeviceMesh, or a dict of axis sizes)."""
     tp = axis_sizes(mesh)["tp"]
     problems = []
     if cfg.n_heads % tp:
@@ -184,7 +201,7 @@ def check_divisibility(cfg, mesh: DeviceMesh) -> None:
         raise ValueError("indivisible sharding: " + ", ".join(problems))
 
 
-def check_moe_divisibility(cfg, mesh: DeviceMesh) -> None:
+def check_moe_divisibility(cfg, mesh) -> None:
     """The dense checks, plus ep over the experts."""
     ep = axis_sizes(mesh)["ep"]
     if cfg.n_experts % ep:
@@ -288,6 +305,22 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _Psum(torch.autograd.Function):
+    """All-reduce; backward: all-reduce. Sums per-rank shares of a value
+    that every rank then uses in its own share of the loss (JAX's
+    ``psum``, whose transpose is ``psum``): the gradient of the sum is
+    the sum of every rank's gradient of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 class Shards:
     """What a model running on local shards needs of a mesh: each axis's
     group, size and this process's rank on it, the parameter specs, and the
@@ -295,12 +328,16 @@ class Shards:
     collectives in the same order (the same code on same-shaped shards), as
     a group's collectives require."""
 
-    def __init__(self, mesh: DeviceMesh, specs):
+    def __init__(self, mesh: DeviceMesh, specs, split_tokens: bool = True):
         self.mesh = mesh
         self.specs = specs
         self.size = axis_sizes(mesh)
         self.group = {a: mesh.get_group(a) for a in AXES}
         self.rank = {a: mesh.get_local_rank(a) for a in AXES}
+        #: whether the model's tokens are split over the data axes (rows
+        #: over dp and fsdp, the sequence over sp), as in training; an
+        #: inference mesh holds every row whole on every rank
+        self.split_tokens = split_tokens
 
     # -- parameters: fsdp gathered at use --------------------------------
     def use(self, params, specs):
@@ -342,6 +379,55 @@ class Shards:
         """``x`` all-gathered over ``axis`` along ``dim``, in rank order (no
         autograd: the serving path's logits)."""
         return _gather(x, dim % x.dim(), self.group[axis])
+
+    # -- expert parallel -----------------------------------------------------
+    def experts(self, n_experts: int) -> slice:
+        """This rank's slice of the stacked expert axis."""
+        n = n_experts // self.size["ep"]
+        return slice(self.rank["ep"] * n, (self.rank["ep"] + 1) * n)
+
+    def ep_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Enter this rank's experts with ``x`` every ep rank holds whole:
+        identity, whose gradient (each rank's, from its own experts) sums
+        over ep."""
+        return _Copy.apply(x, self.group["ep"])
+
+    def ep_out(self, x: torch.Tensor) -> torch.Tensor:
+        """Leave the experts: each rank's partial sum over its own experts,
+        all-reduced over ep; its gradient every rank has whole."""
+        return _Reduce.apply(x, self.group["ep"])
+
+    # -- the global token set (MoE routing) --------------------------------
+    def all_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [B, S, ...] of this rank's rows and sequence block as the
+        global [B * dp * fsdp, S * sp, ...], rows in BATCH_SPEC's order (dp
+        outermost) and the sequence in sp's; backward: every rank's
+        gradient of the whole summed, each keeping its own block (the
+        reduce-scatter)."""
+        x = _GatherAtUse.apply(x, 1, self.group["sp"])
+        for a in ("fsdp", "dp"):
+            x = _GatherAtUse.apply(x, 0, self.group[a])
+        return x
+
+    def own_tokens(self, x: torch.Tensor, B: int, S: int) -> torch.Tensor:
+        """This rank's [B * S, ...] token block of ``x`` [T_global, ...] in
+        the global token order of :meth:`all_tokens` (t = b * S_global +
+        s)."""
+        row = (self.rank["dp"] * self.size["fsdp"] + self.rank["fsdp"]) * B
+        col = self.rank["sp"] * S
+        rest = x.shape[1:]
+        whole = x.reshape(-1, S * self.size["sp"], *rest)
+        return whole[row:row + B, col:col + S].reshape(B * S, *rest)
+
+    def sum_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, this rank's share of a sum over the global tokens, summed
+        over the axes that split them (backward: the same sum, as
+        :class:`_Psum`). Without split tokens, ``x`` itself."""
+        if not self.split_tokens:
+            return x
+        for a in DATA_AXES:
+            x = _Psum.apply(x, self.group[a])
+        return x
 
     # -- pipeline ------------------------------------------------------------
     def pp_in(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Pipeline parallelism: GPipe microbatched stages over the ``pp`` mesh axis,
-the port of ``nanotpu/parallel/pipeline.py`` (the dense Llama stack).
+the port of ``nanotpu/parallel/pipeline.py`` (the dense Llama stack and
+the Mixtral MoE stack).
 
 Layer stages live on ``pp`` ranks, and activations hop stage to stage once
 a microbatch tick. nanotpu writes the schedule as a ``lax.scan`` under a
@@ -32,8 +33,16 @@ rank's sequence block and call the per-shard ring over sp directly
 Parameters are nanotpu's stacked tree (:func:`stack_layers`): each layer
 leaf carries a leading [n_layers] axis, which ``pp`` splits into a
 contiguous block of L/pp layers a rank (:func:`llama_pp_param_specs`). A
-stage unbinds its block once a step and runs it layer by layer. Mixtral
-under pp is not ported yet.
+stage unbinds its block once a step and runs it layer by layer.
+
+A Mixtral stage (:func:`mixtral_pp_param_specs`: each expert leaf keeps
+its ep split after the layer axis, so pp composes with ep) runs
+:func:`nanotpu_torch.models.mixtral.decoder_layer`, the plain forward's
+layer, and sums its router aux losses over the ticks that carry a real
+microbatch. Routing, capacity and the aux loss are per microbatch, and
+within one global over the tokens that the data axes split (its rows
+over dp and fsdp, its sequence over sp under the ring, nanotpu's
+``seq_axis="sp"``); the aux term is the mean over the microbatches.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ import dataclasses
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
-from nanotpu_torch.models import llama
+from nanotpu_torch.models import llama, mixtral
 from nanotpu_torch.parallel.mesh import (
     BATCH_SPEC,
     P,
@@ -51,15 +60,12 @@ from nanotpu_torch.parallel.mesh import (
     axis_sizes,
     llama_param_specs,
     local,
+    mixtral_param_specs,
+    param_specs,
     placements_for,
 )
 from nanotpu_torch.parallel.ring_attention import _shift
 from nanotpu_torch.tree import leaves, map_tree
-
-#: what a Mixtral pipeline raises
-MOE_NOT_PORTED = ("Mixtral under pp is not ported yet: the pipelined MoE "
-                  "stage comes with expert parallelism on a mesh, next in "
-                  "the port's queue")
 
 
 # -- parameter layout ---------------------------------------------------------
@@ -91,14 +97,31 @@ def _map_specs(fn, tree):
     return [_map_specs(fn, v) for v in tree]
 
 
-def llama_pp_param_specs(cfg) -> dict:
-    """Specs of the stacked dense tree: ``pp`` on the leading layer axis,
-    each layer leaf's tp/fsdp spec shifted right; the embedding, final norm
-    and head keep theirs (they run outside the pipeline, replicated over
-    pp)."""
-    base = llama_param_specs(cfg)
+def _stacked_specs(base: dict) -> dict:
+    """``pp`` prefixed onto every layer leaf's spec (the stacked leading
+    axis); the embedding, final norm and head keep theirs (they run outside
+    the pipeline, replicated over pp)."""
     return {**base, "layers": _map_specs(lambda spec: P("pp", *spec),
                                          base["layers"][0])}
+
+
+def llama_pp_param_specs(cfg) -> dict:
+    """Specs of the stacked dense tree: ``pp`` on the leading layer axis,
+    each layer leaf's tp/fsdp spec shifted right."""
+    return _stacked_specs(llama_param_specs(cfg))
+
+
+def mixtral_pp_param_specs(cfg) -> dict:
+    """Specs of the stacked MoE tree: ``pp`` on the leading layer axis, each
+    expert leaf's (ep, fsdp/tp) spec shifted right, so the experts stay
+    split over ep inside each stage."""
+    return _stacked_specs(mixtral_param_specs(cfg))
+
+
+def pp_param_specs(cfg) -> dict:
+    """:func:`mixtral_pp_param_specs` for a MoE config, else
+    :func:`llama_pp_param_specs`."""
+    return _stacked_specs(param_specs(cfg))
 
 
 def check_pp_divisibility(cfg, mesh, batch: int, n_micro: int) -> None:
@@ -141,20 +164,29 @@ def _layer(block, i: int):
 
 def _pipeline_body(local_layers, xm, cos, sin, cfg, shard: Shards,
                    n_micro: int):
-    """xm [M, mB, S, D] hidden states (the same on every pp rank) -> out
-    [M, mB, S, D] through all n_layers across the stages, on every rank.
-    ``local_layers``: this rank's stacked block [L/pp, ...]."""
+    """xm [M, mB, S, D] hidden states (the same on every pp rank) -> (out
+    [M, mB, S, D] through all n_layers across the stages, on every rank;
+    the router aux losses of every layer and microbatch summed, on every
+    rank, or None for the dense stack). ``local_layers``: this rank's
+    stacked block [L/pp, ...]."""
     n_stages, rank = shard.size["pp"], shard.rank["pp"]
     ticks = n_micro + n_stages - 1
     block = map_tree(lambda t: t.unbind(0), local_layers)
     n_local = leaves(local_layers)[0].shape[0]
-    layer_specs = llama_param_specs(cfg)["layers"][0]
-    layer_fn = llama._remat_layer(cfg) if cfg.remat else llama.decoder_layer
+    moe = hasattr(cfg, "n_experts")
+    layer_specs = param_specs(cfg)["layers"][0]
+    if moe:
+        layer_fn = mixtral.decoder_layer
+    elif cfg.remat:
+        layer_fn = llama._remat_layer(cfg)
+    else:
+        layer_fn = llama.decoder_layer
     first = torch.tensor(rank == 0, device=xm.device)
     last = torch.tensor(rank == n_stages - 1, device=xm.device)
 
     recv = torch.zeros_like(xm[0])
     outs = [None] * n_micro
+    aux_run = torch.zeros((), dtype=torch.float32, device=xm.device)
     for t in range(ticks):
         # stage 0 feeds itself microbatch clip(t); the others take what the
         # previous stage sent last tick (a bubble computes on garbage)
@@ -162,6 +194,12 @@ def _pipeline_body(local_layers, xm, cos, sin, cfg, shard: Shards,
         for i in range(n_local):
             h = layer_fn(shard.use(_layer(block, i), layer_specs), h, cfg,
                          cos, sin, shard)
+            if moe:
+                h, aux = h
+                # this rank works on microbatch t - rank: a bubble's aux
+                # does not count
+                if 0 <= t - rank < n_micro:
+                    aux_run = aux_run + aux
         # the last stage's y at tick t is microbatch t-(P-1); writes before
         # the pipeline fills land on slot 0 and are overwritten at t = P-1
         outs[min(max(t - (n_stages - 1), 0), n_micro - 1)] = h
@@ -169,12 +207,17 @@ def _pipeline_body(local_layers, xm, cos, sin, cfg, shard: Shards,
             recv = _PipeShift.apply(h, shard.group["pp"]) if n_stages > 1 \
                 else h
     out = torch.stack(outs)
-    return shard.pp_out(torch.where(last, out, torch.zeros_like(out)))
+    out = shard.pp_out(torch.where(last, out, torch.zeros_like(out)))
+    # every (stage, microbatch) pair ran on one rank: the sum over pp counts
+    # each layer's aux on each microbatch once
+    return out, (shard.pp_out(aux_run) if moe else None)
 
 
 def _pipelined_logits(params, tokens, cfg, shard: Shards, n_micro: int):
-    """This rank's rows and sequence block of tokens [B, S] -> logits
-    [B, S, vocab/tp] f32 through embed -> stages -> final norm and head."""
+    """This rank's rows and sequence block of tokens [B, S] -> (logits
+    [B, S, vocab/tp] f32 through embed -> stages -> final norm and head;
+    for a MoE model the router aux loss, the mean over microbatches of
+    each one's summed over layers, else None)."""
     B, S = tokens.shape
     if B % n_micro:
         raise ValueError(f"local batch {B} does not split into {n_micro} "
@@ -187,11 +230,13 @@ def _pipelined_logits(params, tokens, cfg, shard: Shards, n_micro: int):
     cos, sin = llama.rope_freqs(cfg, positions)
     x = shard.embed(shard.use(params["embed"], shard.specs["embed"]), tokens)
     xm = shard.pp_in(x).reshape(n_micro, B // n_micro, S, cfg.dim)
-    h = _pipeline_body(params["layers"], xm, cos, sin, cfg, shard,
-                       n_micro).reshape(B, S, cfg.dim)
-    h = llama.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h, aux = _pipeline_body(params["layers"], xm, cos, sin, cfg, shard,
+                            n_micro)
+    h = llama.rms_norm(h.reshape(B, S, cfg.dim), params["final_norm"],
+                       cfg.norm_eps)
     head = shard.use(params["lm_head"], shard.specs["lm_head"])
-    return llama.linear(shard.tp_in(h), head).float()
+    logits = llama.linear(shard.tp_in(h), head).float()
+    return logits, (None if aux is None else aux / n_micro)
 
 
 def _rows(tokens, mesh, shard: Shards):
@@ -202,39 +247,66 @@ def _rows(tokens, mesh, shard: Shards):
     return shard.seq_block(rows)
 
 
+def _forward(params, tokens, cfg, mesh, n_micro: int):
+    check_pp_divisibility(cfg, mesh, tokens.shape[0], n_micro)
+    shard = Shards(mesh, pp_param_specs(cfg))
+    logits, aux = _pipelined_logits(local(params), _rows(tokens, mesh, shard),
+                                    cfg, shard, n_micro)
+    split = placements_for(mesh, P(("dp", "fsdp"), "sp", "tp"), 3)
+    return DTensor.from_local(logits, mesh, split, run_check=False
+                              ).full_tensor(), aux
+
+
 def pipelined_forward(params, tokens, cfg, mesh, n_micro: int):
     """tokens [B, S] (the same on every process) -> logits [B, S, vocab]
     f32, whole on every process, via the pp-staged dense decoder.
     ``params``: the stacked tree (:func:`stack_layers`) placed on ``mesh``
     by :func:`llama_pp_param_specs` (``train.place_state``'s DTensors)."""
-    check_pp_divisibility(cfg, mesh, tokens.shape[0], n_micro)
-    shard = Shards(mesh, llama_pp_param_specs(cfg))
-    logits = _pipelined_logits(local(params), _rows(tokens, mesh, shard), cfg,
-                               shard, n_micro)
-    split = placements_for(mesh, P(("dp", "fsdp"), "sp", "tp"), 3)
-    return DTensor.from_local(logits, mesh, split, run_check=False
-                              ).full_tensor()
+    return _forward(params, tokens, cfg, mesh, n_micro)[0]
+
+
+def mixtral_pipelined_forward(params, tokens, cfg, mesh, n_micro: int):
+    """The MoE counterpart: (logits, the router aux loss), both on every
+    process; ``params`` placed by :func:`mixtral_pp_param_specs`. The aux
+    loss and the experts' capacity are per microbatch (its mB * S tokens
+    compete for an expert's slots), and the aux term is the mean over the
+    microbatches, as nanotpu's is."""
+    return _forward(params, tokens, cfg, mesh, n_micro)
 
 
 class PipelinedLoss:
-    """nanotpu's ``pipelined_loss_fn`` bound to ``n_micro``, in the port's
-    mesh-loss form ``(params, tokens, cfg, shard)`` that
+    """nanotpu's ``pipelined_loss_fn`` (``model="llama"``) or
+    ``mixtral_pipelined_loss_fn`` (``"mixtral"``) bound to ``n_micro``, in
+    the port's mesh-loss form ``(params, tokens, cfg, shard)`` that
     ``train.build_train_step(..., mesh=...)`` calls on local shards:
     ``tokens`` [B, S+1] this rank's rows; the next-token cross entropy of
-    the pipelined logits, this rank's share of the global batch's mean
-    (summed over the data axes, the whole)."""
+    the pipelined logits (plus ``router_aux_weight`` times the aux loss
+    for Mixtral), this rank's share of the global batch's loss (summed
+    over the data axes, the whole)."""
 
-    def __init__(self, mesh, n_micro: int):
+    def __init__(self, mesh, n_micro: int, model: str = "llama"):
+        if model not in ("llama", "mixtral"):
+            raise ValueError(f"model {model!r} is not one of 'llama', "
+                             "'mixtral'")
         self.mesh = mesh
         self.n_micro = n_micro
+        self.model = model
 
     def __call__(self, params, tokens, cfg, shard: Shards):
+        if (self.model == "mixtral") != hasattr(cfg, "n_experts"):
+            raise ValueError(f"a {self.model} pipelined loss got a "
+                             f"{type(cfg).__name__}")
         inputs = shard.seq_block(tokens[:, :-1])
         targets = shard.seq_block(tokens[:, 1:])
-        logits = _pipelined_logits(params, inputs, cfg, shard, self.n_micro)
+        logits, aux = _pipelined_logits(params, inputs, cfg, shard,
+                                        self.n_micro)
         nll = shard.nll_sum(logits.reshape(-1, logits.shape[-1]),
                             targets.reshape(-1))
-        return nll / (targets.numel() * shard.token_shards())
+        loss = nll / (targets.numel() * shard.token_shards())
+        if aux is None:
+            return loss
+        # every data shard holds the whole aux: its share counts it once
+        return loss + cfg.router_aux_weight * aux / shard.token_shards()
 
 
 def pipelined_loss_fn(params, tokens, cfg, *, shard: Shards, n_micro: int):
@@ -242,9 +314,15 @@ def pipelined_loss_fn(params, tokens, cfg, *, shard: Shards, n_micro: int):
     return PipelinedLoss(shard.mesh, n_micro)(params, tokens, cfg, shard)
 
 
+def mixtral_pipelined_loss_fn(params, tokens, cfg, *, shard: Shards,
+                              n_micro: int):
+    """The MoE :class:`PipelinedLoss`'s loss, unbound."""
+    return PipelinedLoss(shard.mesh, n_micro, "mixtral")(params, tokens, cfg,
+                                                         shard)
+
+
 def make_pipelined_loss(mesh, n_micro: int, model: str = "llama"):
     """The loss ``build_train_step(loss_fn=..., mesh=mesh)`` takes for a
-    pipelined Llama. Mixtral raises NotImplementedError."""
-    if model != "llama":
-        raise NotImplementedError(MOE_NOT_PORTED)
-    return PipelinedLoss(mesh, n_micro)
+    pipelined ``model``, "llama" or "mixtral" (on the stacked tree placed
+    by :func:`llama_pp_param_specs` or :func:`mixtral_pp_param_specs`)."""
+    return PipelinedLoss(mesh, n_micro, model)

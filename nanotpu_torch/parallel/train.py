@@ -14,14 +14,15 @@ eagerly on the CPU. ``--profile-dir`` traces the steady-state calls with
 ``torch.profiler``.
 
 On a mesh (``build_train_step(..., mesh=...)``; the CLI's ``--dp --fsdp
---tp --sp --pp`` in a job of several processes, :mod:`.distributed`) the
-state is placed as DTensors by nanotpu's PartitionSpecs
+--tp --sp --ep --pp`` in a job of several processes, :mod:`.distributed`)
+the state is placed as DTensors by nanotpu's PartitionSpecs
 (:func:`place_state`), and each rank runs the model on its shards
 (:class:`.mesh.Shards`), sums the gradients over the data axes each
 parameter is not split on, clips by the global norm and updates its shards
-in place. ``--pp`` > 1 trains nanotpu's stacked tree through the GPipe
-pipeline (:mod:`.pipeline`, ``--microbatches`` of them). nanotpu's ``ep``
-is not ported: the CLI refuses it, and Mixtral on a mesh.
+in place. Mixtral's experts split over ``ep`` (their gradients stay with
+their rank); its routing is global over the step's tokens. ``--pp`` > 1
+trains nanotpu's stacked tree through the GPipe pipeline (:mod:`.pipeline`,
+``--microbatches`` of them), Llama's or Mixtral's.
 
 Run:  python -m nanotpu_torch.parallel.train --preset flagship --attn flash
       --seq 2049 --batch 8 --data markov --steps 24 --fuse-steps 8
@@ -55,10 +56,11 @@ from nanotpu_torch.parallel.mesh import (
     P,
     Shards,
     check_divisibility,
-    llama_param_specs,
+    check_moe_divisibility,
     local,
     make_mesh,
     mesh_size_error,
+    param_specs as model_param_specs,
     placements_for,
     spec_leaves,
 )
@@ -180,20 +182,21 @@ def build_train_step(
 
     With ``mesh`` (any size, one included) the step is the sharded one,
     :func:`mesh_train_step`, on a state from :func:`place_state`: the Llama
-    loss, or the pipelined one
-    (:func:`.pipeline.make_pipelined_loss`, on the stacked tree placed by
-    :func:`.pipeline.llama_pp_param_specs`)."""
+    or the Mixtral loss (``cfg``'s specs unless ``param_specs`` are given),
+    or a pipelined one (:func:`.pipeline.make_pipelined_loss`, on the
+    stacked tree placed by :func:`.pipeline.pp_param_specs`)."""
     if n_fused < 1:
         raise ValueError(f"n_fused must be at least 1, not {n_fused}")
     if mesh is not None:
         if n_fused != 1:
             raise ValueError("fused steps on a mesh are not ported yet")
-        if not (loss_fn in (None, llama.loss_fn)
+        if not (loss_fn in (None, llama.loss_fn, mixtral.loss_fn)
                 or isinstance(loss_fn, pipeline.PipelinedLoss)):
-            raise ValueError("a mesh trains the Llama loss only: Mixtral on "
-                             "a mesh is not ported yet")
+            raise ValueError("a mesh trains the Llama or Mixtral loss, or a "
+                             "pipelined one: a loss that takes a mesh's "
+                             "shards")
         return mesh_train_step(cfg, optimizer, mesh,
-                               param_specs or llama_param_specs(cfg),
+                               param_specs or model_param_specs(cfg),
                                loss_fn or llama.loss_fn)
     loss_fn = loss_fn or llama.loss_fn
 
@@ -254,10 +257,10 @@ def mesh_train_step(cfg, optimizer: AdamW, mesh, specs,
 def place_state(state: TrainState, cfg, mesh,
                 param_specs=None) -> TrainState:
     """``state`` (whole tensors, the same on every process) as DTensors on
-    ``mesh``: parameters by spec (Llama's unless given), each AdamW moment
-    placed like its parameter, the count replicated. Process 0's tensors
-    are scattered."""
-    specs = param_specs or llama_param_specs(cfg)
+    ``mesh``: parameters by spec (``cfg``'s model's unless given), each
+    AdamW moment placed like its parameter, the count replicated. Process
+    0's tensors are scattered."""
+    specs = param_specs or model_param_specs(cfg)
 
     def put(t, spec):
         return distribute_tensor(t.detach(), mesh,
@@ -493,9 +496,6 @@ _PRESETS = {
     ),
 }
 
-#: flags of nanotpu's trainer that the port refuses, with their idle values
-_NOT_PORTED = {"ep": (1,)}
-
 
 def _auto_mesh_factors(n: int, model: str) -> dict[str, int]:
     """nanotpu's default factorization of the device count: MoE prefers an
@@ -536,10 +536,10 @@ def _parser():
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1,
                    help=">1 switches attention to the sp ring")
-    p.add_argument("--ep", type=int, default=_NOT_PORTED["ep"][0],
-                   help="flag of nanotpu's trainer: not ported yet")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert parallelism: Mixtral's experts split over ep")
     p.add_argument("--pp", type=int, default=1,
-                   help=">1 pipelines llama layers over pp stages")
+                   help=">1 pipelines the layers over pp stages")
     p.add_argument("--microbatches", type=int, default=0,
                    help="pipeline microbatches (0 = 2*pp)")
     p.add_argument("--attn", choices=["dense", "flash", "ring"], default="",
@@ -640,10 +640,6 @@ def run(argv: list[str] | None = None) -> dict:
     with the plain step."""
     parser = _parser()
     args = parser.parse_args(argv)
-    for flag, idle in _NOT_PORTED.items():
-        if getattr(args, flag) not in idle:
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet: "
-                         "expert parallelism comes next in the port's queue")
     device = resolve_device(args.device)
     joined = distributed.initialize(device=device)
     try:
@@ -683,14 +679,15 @@ def _run(parser, args, device: torch.device) -> dict:
         loss, init = mixtral.loss_fn, mixtral.init_params
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if args.dp or args.fsdp > 1 or args.tp > 1 or args.sp > 1 or args.pp > 1:
+    if (args.dp or args.fsdp > 1 or args.tp > 1 or args.ep > 1 or args.sp > 1
+            or args.pp > 1):
         # --dp 0 with explicit parallelism flags: dp absorbs the remainder
-        denom = args.fsdp * args.tp * args.sp * args.pp
+        denom = args.fsdp * args.tp * args.ep * args.sp * args.pp
         if world % denom:
             parser.error(f"fsdp*tp*ep*sp*pp={denom} does not divide {world} "
                          "devices")
         factors = {"dp": args.dp or world // denom, "fsdp": args.fsdp,
-                   "tp": args.tp, "sp": args.sp, "pp": args.pp}
+                   "tp": args.tp, "ep": args.ep, "sp": args.sp, "pp": args.pp}
     else:
         factors = _auto_mesh_factors(world, args.model)
     err = mesh_size_error(**factors, world=world)
@@ -698,18 +695,17 @@ def _run(parser, args, device: torch.device) -> dict:
         parser.error(err)
     mesh = None
     if world > 1:
-        if args.model != "llama":
-            parser.error("--model mixtral on a mesh of more than one device "
-                         "is not ported yet: it comes with expert "
-                         "parallelism, next in the port's queue")
         if fuse > 1:
             parser.error("--fuse-steps > 1 on a mesh of more than one device "
                          "is not ported yet")
-        mesh = make_mesh(**factors, device=device)
         try:
-            check_divisibility(cfg, mesh)
+            if args.model == "mixtral":
+                check_moe_divisibility(cfg, factors)
+            else:
+                check_divisibility(cfg, factors)
         except ValueError as e:
             parser.error(str(e))
+        mesh = make_mesh(**factors, device=device)
     elif cfg.attn_impl == "ring":
         parser.error("--attn ring runs over the sp axis of a mesh: a job of "
                      "more than one process")
@@ -750,8 +746,8 @@ def _run(parser, args, device: torch.device) -> dict:
         # the stacked tree, so that the moments are made for the layout
         # that trains
         init = _stacked(init or llama.init_params)
-        specs = pipeline.llama_pp_param_specs(cfg)
-        loss = pipeline.make_pipelined_loss(mesh, n_micro)
+        specs = pipeline.pp_param_specs(cfg)
+        loss = pipeline.make_pipelined_loss(mesh, n_micro, model=args.model)
     state = init_train_state(
         torch.Generator(device=device).manual_seed(args.seed), cfg, optimizer,
         device=device, init_fn=init)

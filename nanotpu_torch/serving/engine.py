@@ -41,7 +41,8 @@ The caches and the decode carry are allocated once and updated in place
 addresses hold.
 
 **On a mesh** (``mesh=``, :mod:`nanotpu_torch.parallel.infer`) each process
-holds its shards: params placed tp x fsdp, the caches at its kv heads. The
+holds its shards: params placed tp x fsdp (a MoE model's experts over ep
+too), from a tree on its card or on the CPU, the caches at its kv heads. The
 JAX engine drives the whole mesh from one process; here one process drives
 each card, and what the loop decides hangs on the host (when requests
 arrive, the measured policy's clock, what each row still owes). So rank 0
@@ -55,7 +56,7 @@ the same unit body on its shards, with the same host bookkeeping, from a
 generator seeded as rank 0's, so its requests (``followed``) end with the
 same tokens. ``submit`` on a follower raises. The captured graphs then
 hold the NCCL collectives of a step: the tp all-reduces, the logits'
-all-gather and the fsdp gathers.
+all-gather, the fsdp gathers and a MoE layer's ep all-reduce.
 """
 
 from __future__ import annotations
@@ -719,9 +720,11 @@ class Engine:
             raise ValueError(f"cuda_graphs=True needs a cuda device, not "
                              f"{self.device}")
         self.cuda_graphs = cuda_graphs
-        # the norm gains are never quantized: their device is the tree's
+        # the norm gains are never quantized: their device is the tree's.
+        # On a mesh a whole tree may be held elsewhere (on the CPU): each
+        # rank places its own shards on its device (place_params).
         on = params["final_norm"].device
-        if on.type != self.device.type:
+        if mesh is None and on.type != self.device.type:
             raise ValueError(
                 f"params live on {on}, the engine on {self.device}"
             )

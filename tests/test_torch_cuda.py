@@ -1170,6 +1170,170 @@ def test_pipeline_step_at_512_equals_plain(card, nccl_mesh, attn):
         assert (a - b).abs().max() <= 1e-4
 
 
+def _recorded_routing(fn):
+    """``fn()``'s result and the routing decisions it took, as (expert,
+    capacity slot, kept) per choice per call of ``route_decisions``."""
+    from nanotpu_torch.models import mixtral
+
+    route, seen = mixtral.route_decisions, []
+
+    def recording(logits, cfg, capacity=None):
+        choices, aux, C = route(logits, cfg, capacity)
+        seen.append([(c[0].argmax(-1), c[1], c[2]) for c in choices])
+        return choices, aux, C
+
+    mixtral.route_decisions = recording
+    try:
+        return fn(), seen
+    finally:
+        mixtral.route_decisions = route
+
+
+def _assert_same_routing(got, want):
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        for (ge, gp, gk), (we, wp, wk) in zip(a, b):
+            assert torch.equal(ge, we) and torch.equal(gk, wk)
+            assert torch.equal(gp[wk], wp[wk])
+
+
+@pytest.mark.cuda
+def test_moe_mesh_step_equals_plain(card, nccl_mesh):
+    """The Mixtral mesh step at world 1 (experts placed over ep, routing
+    gathered over the data axes, the ep collectives on groups of one)
+    against the plain step from the same state on the same batches, f32:
+    routing decisions equal on the first batch, losses within 1e-5,
+    updated parameters within 1e-4; flash forward and fused backward once
+    a layer a step."""
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.tree import map_tree
+
+    cfg, loss_fn, init_fn = _train_models(card, "mixtral", "float32")
+    opt = train.make_optimizer()
+    base = train.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                                  device=card, init_fn=init_fn)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 4, 129),
+                           generator=torch.Generator(device=card
+                                                     ).manual_seed(1),
+                           device=card)
+    _, want_routing = _recorded_routing(
+        lambda: loss_fn(base.params, tokens[0], cfg))
+    plain = train.TrainState(map_tree(lambda t: t.detach().clone(),
+                                      base.params), opt.init(base.params), 0)
+    step = train.build_train_step(cfg, opt, loss_fn=loss_fn)
+    want = []
+    for row in tokens:
+        plain, loss = step(plain, row)
+        want.append(loss.item())
+    state = train.place_state(
+        train.TrainState(map_tree(lambda t: t.detach().clone(), base.params),
+                         opt.init(base.params), 0), cfg, nccl_mesh)
+    assert state.params["layers"][0]["moe"]["w_gate"].placements[-1] \
+        .is_shard(0)
+    mstep = train.build_train_step(cfg, opt, loss_fn=mixtral.loss_fn,
+                                   mesh=nccl_mesh)
+    before = (flash_attention.launches, att.flash_bwd_fused.launches)
+    got = []
+    for i, row in enumerate(tokens):
+        if i == 0:
+            (state, loss), routing = _recorded_routing(
+                lambda: mstep(state, row))
+            _assert_same_routing(routing, want_routing)
+        else:
+            state, loss = mstep(state, row)
+        got.append(loss.item())
+    assert got == pytest.approx(want, abs=1e-5)
+    assert flash_attention.launches - before[0] == 3 * cfg.n_layers
+    assert att.flash_bwd_fused.launches - before[1] == 3 * cfg.n_layers
+    for a, b in zip(leaves(state.params), leaves(plain.params)):
+        assert (a.full_tensor().detach() - b).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_moe_pipeline_step_equals_microbatch_averaged_plain(card, nccl_mesh):
+    """The pipelined Mixtral step at pp=1 (M=4, the stacked tree) against
+    the plain step on the mean of ``mixtral.loss_fn`` over the same four
+    microbatches (capacity and the aux loss are per microbatch), f32:
+    losses within 1e-5, updated parameters within 1e-4; flash forward and
+    fused backward once a layer a microbatch."""
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.parallel import pipeline as tpp
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.tree import map_tree
+
+    cfg, _, init_fn = _train_models(card, "mixtral", "float32")
+    cfg = dataclasses.replace(cfg, max_seq_len=512)
+    M = 4
+
+    def averaged(params, tokens, cfg):
+        mb = tokens.shape[0] // M
+        return sum(mixtral.loss_fn(params, tokens[i * mb:(i + 1) * mb], cfg)
+                   for i in range(M)) / M
+
+    opt = train.make_optimizer()
+    base = train.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                                  device=card, init_fn=init_fn)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 8, 513),
+                           generator=torch.Generator(device=card
+                                                     ).manual_seed(1),
+                           device=card)
+    plain = train.TrainState(map_tree(lambda t: t.detach().clone(),
+                                      base.params), opt.init(base.params), 0)
+    step = train.build_train_step(cfg, opt, loss_fn=averaged)
+    want = []
+    for row in tokens:
+        plain, loss = step(plain, row)
+        want.append(loss.item())
+    stacked = tpp.stack_layers(map_tree(lambda t: t.detach().clone(),
+                                        base.params))
+    specs = tpp.mixtral_pp_param_specs(cfg)
+    state = train.place_state(
+        train.TrainState(stacked, opt.init(stacked), 0), cfg, nccl_mesh,
+        param_specs=specs)
+    pstep = train.build_train_step(
+        cfg, opt, loss_fn=tpp.make_pipelined_loss(nccl_mesh, M, "mixtral"),
+        mesh=nccl_mesh, param_specs=specs)
+    before = (flash_attention.launches, att.flash_bwd_fused.launches)
+    got = []
+    for row in tokens:
+        state, loss = pstep(state, row)
+        got.append(loss.item())
+    assert got == pytest.approx(want, abs=1e-5)
+    assert flash_attention.launches - before[0] == 3 * M * cfg.n_layers
+    assert att.flash_bwd_fused.launches - before[1] == 3 * M * cfg.n_layers
+    mine = tpp.unstack_layers(map_tree(lambda t: t.full_tensor().detach(),
+                                       state.params))
+    for a, b in zip(leaves(mine), leaves(plain.params)):
+        assert (a - b).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_mesh_engine_graphed_equals_eager_and_plain(card, nccl_mesh,
+                                                        dtype):
+    """``Engine(mesh=)`` on a Mixtral placed from a tree on the CPU (each
+    shard moved to the card), its decode graphs holding the ep and tp
+    all-reduces: greedy tokens equal to the same engine eager and to the
+    plain engine's, and the same prefill drops."""
+    from nanotpu_torch.tree import map_tree
+
+    cfg, params = _moe_models(card, dtype)
+    cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+    prompts = [[3, 1, 4, 1, 5], list(range(40)), [9], [7] * 60]
+    plain, plain_eng = _engine_run(params, cfg, prompts, 24)
+    on_cpu = map_tree(lambda t: t.cpu(), params)
+    for graphs in (False, True):
+        outs, eng = _engine_run(on_cpu, cfg, prompts, 24, cuda_graphs=graphs,
+                                mesh=nccl_mesh)
+        assert outs == plain, graphs
+        assert (eng.moe_prefill_dropped_total
+                == plain_eng.moe_prefill_dropped_total > 0)
+        assert all(t.device.type == "cuda" for t in leaves(eng.params))
+        if graphs:
+            assert all(g.replays > 0 for g in eng.graphs.values())
+
+
 @pytest.mark.cuda
 def test_uncapturable_train_step_raises(card):
     """A step with a host sync in its loss captures nothing: the capture

@@ -31,6 +31,7 @@ import torch
 
 from nanotpu.models import generate as jgen
 from nanotpu.models import llama as jl
+from nanotpu.models import mixtral as jmixtral
 from nanotpu.models.quant import quantize_params as jquantize
 from nanotpu.models.speculative import speculative_generate as jspec
 from nanotpu.parallel import infer as jinfer
@@ -58,9 +59,14 @@ ENGINES = {"plain": {}, "kv_int8": {"kv_int8": True}, "int8": {},
 WORLDS = {2: (dict(tp=2), list(ENGINES)), 4: (dict(tp=2, fsdp=2), ["plain"])}
 ENGINE_KW = dict(slots=3, max_len=128, buckets=(16, 32), chunk_steps=4,
                  chunk_steps_max=8)
+#: world -> the meshes a whole tree is placed on to count the bytes its
+#: shards keep: split over one axis (tp's embed, wo and w_down rows, fsdp's
+#: wq/wk/wv and gate/up rows: contiguous blocks) and over two
+PLACEMENTS = {2: {"tp2": dict(tp=2), "fsdp2": dict(fsdp=2)},
+              4: {"tp2_fsdp2": dict(tp=2, fsdp=2)}}
 
 CHILD = r"""
-import dataclasses, pickle, sys
+import dataclasses, gc, pickle, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -75,6 +81,7 @@ from nanotpu_torch.models.quant import quantize_params
 from nanotpu_torch.models.speculative import speculative_generate
 from nanotpu_torch.parallel import infer, mesh as tm
 from nanotpu_torch.serving.engine import Engine
+from nanotpu_torch.tree import leaves
 
 with open(f"{where}/in.pkl", "rb") as f:
     inp = pickle.load(f)
@@ -126,6 +133,18 @@ for temp in (0.0, 0.8):
         infer.place_params(draft, dcfg, mesh), prompt, cfg, dcfg, n,
         draft_tokens=3, temperature=temp, mesh=mesh,
         generator=torch.Generator().manual_seed(7))[0].tolist()
+
+# every shard placed from a whole tree, the tree then dropped: the bytes
+# each rank keeps alive against its shards' own
+def kept_and_own(factors):
+    shards = tm.local(infer.place_params(
+        params_from_numpy(inp["params"], "cpu"), cfg, tm.make_mesh(**factors)))
+    gc.collect()
+    return (sum(t.untyped_storage().nbytes() for t in leaves(shards)),
+            sum(t.numel() * t.element_size() for t in leaves(shards)))
+
+out["bytes"] = {name: kept_and_own(f)
+                for name, f in inp["placements"][world].items()}
 
 import time
 
@@ -232,7 +251,7 @@ def spmd(params, tmp_path_factory):
               "cfg": {f.name: getattr(CFG, f.name)
                       for f in dataclasses.fields(CFG)},
               "worlds": WORLDS, "engines": ENGINES, "engine_kw": ENGINE_KW,
-              "requests": REQUESTS}
+              "requests": REQUESTS, "placements": PLACEMENTS}
     with open(where / "in.pkl", "wb") as f:
         pickle.dump(inputs, f)
     (where / "child.py").write_text(CHILD)
@@ -454,14 +473,41 @@ def test_submit_on_a_follower_raises(spmd):
                 assert "follows rank 0" in out[("engine", name)]["submit"]
 
 
+@pytest.mark.parametrize("world,name", [(w, n) for w, meshes in
+                                        PLACEMENTS.items() for n in meshes])
+def test_placed_shards_keep_only_their_own_bytes(spmd, world, name):
+    """After the whole tree is dropped, the storages of every rank's local
+    shards hold exactly the shards' bytes: a shard that is a block of its
+    tensor's rows is copied, not kept as a view of the whole."""
+    for rank in range(world):
+        kept, own = spmd[world, rank]["bytes"][name]
+        assert kept == own
+
+
+def _spec_tuples(tree):
+    if isinstance(tree, dict):
+        return {k: _spec_tuples(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_spec_tuples(v) for v in tree]
+    return tuple(tree)
+
+
 def test_mixtral_on_a_mesh_is_not_ported():
-    """A MoE config raises the named NotImplementedError, before any
-    placement, and does not fall back to anything."""
-    cfg = tmixtral.MixtralConfig.tiny()
-    with pytest.raises(NotImplementedError, match="Mixtral on a mesh"):
-        tinfer.infer_param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="Mixtral on a mesh"):
-        tinfer.place_params({}, cfg, mesh=None)
+    """A MoE config takes nanotpu's expert-sharded inference specs and its
+    divisibility checks, messages included: nothing is refused (the
+    decode paths on a tp2 x ep2 mesh: ``tests/test_torch_ep.py``)."""
+    jcfg, tcfg = jmixtral.MixtralConfig.tiny(), tmixtral.MixtralConfig.tiny()
+    assert (_spec_tuples(tinfer.infer_param_specs(tcfg))
+            == _spec_tuples(jinfer.infer_param_specs(jcfg)))
+    assert tinfer.infer_param_specs(tcfg)["layers"][0]["moe"]["w_gate"] == (
+        "ep", "fsdp", "tp")
+    with pytest.raises(ValueError) as want:
+        jinfer.check_infer_divisibility(jcfg, jmake_mesh(
+            ep=3, devices=jax.devices()[:3]))
+    with pytest.raises(ValueError) as got:
+        tinfer.check_infer_divisibility(tcfg, {"ep": 3})
+    assert str(got.value) == str(want.value)
+    tinfer.check_infer_divisibility(tcfg, {"tp": 2, "ep": 2})
 
 
 def test_cache_specs_split_the_kv_heads_over_tp():

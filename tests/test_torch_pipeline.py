@@ -33,12 +33,14 @@ import pytest
 import torch
 
 from nanotpu.models import llama as jl
+from nanotpu.models import mixtral as jmixtral
 from nanotpu.parallel import pipeline as jpp
 from nanotpu.parallel import train as jtrain
 from nanotpu.parallel.mesh import make_mesh as jmake_mesh
 from nanotpu.parallel.mesh import shardings_for
 from nanotpu_torch.convert import params_from_numpy
 from nanotpu_torch.models import llama as tl
+from nanotpu_torch.models import mixtral as tmixtral
 from nanotpu_torch.parallel import pipeline as tpp
 from nanotpu_torch.parallel import train as ttrain
 from nanotpu_torch.parallel.mesh import AXES
@@ -352,8 +354,25 @@ def test_check_pp_divisibility_messages_are_nanotpus(cfg_layers, batch,
 
 
 def test_mixtral_pipeline_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Mixtral under pp"):
-        tpp.make_pipelined_loss(None, 4, model="mixtral")
+    """``make_pipelined_loss(model="mixtral")`` binds the MoE pipelined
+    loss, on nanotpu's stacked MoE specs; a model it does not know, or a
+    config of the other model, is refused (the pipelined MoE step on pp2 x
+    ep2 and pp2 x sp2: ``tests/test_torch_ep.py``)."""
+    loss = tpp.make_pipelined_loss(None, 4, model="mixtral")
+    assert isinstance(loss, tpp.PipelinedLoss)
+    assert (loss.model, loss.n_micro) == ("mixtral", 4)
+    jspecs = jpp.mixtral_pp_param_specs(jmixtral.MixtralConfig.tiny())
+    tspecs = tpp.mixtral_pp_param_specs(tmixtral.MixtralConfig.tiny())
+    assert jax.tree_util.tree_map(
+        tuple, jspecs, is_leaf=lambda x: isinstance(
+            x, jax.sharding.PartitionSpec)) == tpp._map_specs(tuple, tspecs)
+    assert tspecs["layers"]["moe"]["w_down"] == ("pp", "ep", "tp", "fsdp")
+    assert tpp.pp_param_specs(tmixtral.MixtralConfig.tiny()) == tspecs
+    with pytest.raises(ValueError, match="not one of"):
+        tpp.make_pipelined_loss(None, 4, model="gpt")
+    with pytest.raises(ValueError, match="a mixtral pipelined loss got a "
+                                         "LlamaConfig"):
+        loss(None, torch.zeros((4, 9), dtype=torch.long), _tcfg(), None)
 
 
 def _free_port() -> int:

@@ -263,19 +263,22 @@ def test_cli_refuses_what_is_not_ported(argv, want, capsys):
 
 
 @pytest.mark.parametrize("world,argv,want", [
-    (1, ["--ep", "2"], "--ep is not ported yet"),
+    (1, ["--ep", "2"], "fsdp*tp*ep*sp*pp=2 does not divide 1 devices"),
     (1, ["--attn", "flash", "--sp", "2"], "conflicts with --sp 2"),
     (1, ["--attn", "ring"], "--attn ring runs over the sp axis of a mesh"),
     (2, ["--tp", "3"], "fsdp*tp*ep*sp*pp=3 does not divide 2 devices"),
-    (2, ["--model", "mixtral"], "--model mixtral on a mesh of more than one"),
+    (3, ["--model", "mixtral", "--ep", "3"],
+     "indivisible sharding: n_experts 4 % ep 3"),
     (2, ["--steps", "4", "--fuse-steps", "2"],
      "--fuse-steps > 1 on a mesh of more than one"),
 ])
 def test_cli_refuses_on_a_mesh_what_is_not_ported(monkeypatch, capsys, world,
                                                   argv, want):
-    """What the port's mesh does not take yet, and nanotpu's own checks,
+    """What the port's mesh does not take yet (fused steps), and nanotpu's
+    own checks (an ep that does not divide the world or the experts),
     refused before a mesh is made (a joined group of ``world`` processes is
-    only pretended here)."""
+    only pretended here). ``--model mixtral --ep 2`` trains:
+    ``tests/test_torch_ep.py``."""
     monkeypatch.setattr(ttrain.dist, "is_initialized", lambda: world > 1)
     monkeypatch.setattr(ttrain.dist, "get_world_size", lambda: world)
     with pytest.raises(SystemExit):
@@ -284,10 +287,14 @@ def test_cli_refuses_on_a_mesh_what_is_not_ported(monkeypatch, capsys, world,
 
 
 def test_mesh_step_refuses_fused_steps_and_other_losses():
+    """Fused steps on a mesh are refused, and a loss that does not run on a
+    mesh's shards; Mixtral's loss is taken (its mesh step:
+    ``tests/test_torch_ep.py``)."""
     cfg, opt = tl.LlamaConfig.tiny(), ttrain.make_optimizer()
     with pytest.raises(ValueError, match="fused steps on a mesh"):
         ttrain.build_train_step(cfg, opt, n_fused=2, mesh=object())
-    with pytest.raises(ValueError, match="Mixtral on a mesh"):
+    with pytest.raises(ValueError, match="Llama or Mixtral loss, or a "
+                                         "pipelined one"):
         ttrain.build_train_step(cfg, opt, loss_fn=lambda *a: None,
                                 mesh=object())
 
