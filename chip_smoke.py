@@ -171,7 +171,24 @@ them:
     8x7B's widths (8 slots, graphed), its weights placed from a tree on
     the CPU after the plain engine's copy on the card is freed: greedy
     tokens and prefill drops equal to the plain engine's, decode tokens/s
-    of each, and peak memory under 1.5x the weights' bytes.
+    of each, and peak memory under 1.5x the weights' bytes;
+18. graphed mesh step: the training flagship's mesh step on a
+    one-process NCCL mesh at ``--fuse-steps 8`` (``build_train_step(...,
+    mesh=mesh, n_fused=8)``: each step one replay of a CUDA graph holding
+    the step's NCCL collectives), with flash and with the ring at sp=1,
+    runs of 16 steps in turns with the eager mesh step (and, flash, the
+    graphed plain step): tokens/s, idle share, capture seconds, peak
+    memory and the graph pool's bytes of each, launches exact, a replayed
+    step against an eager one from the same state, the first call's loss
+    against the eager run's;
+19. graphed pipeline: the same at pp=1, 4 microbatches (flash);
+20. graphed MoE mesh step and MoE pipeline: the Mixtral phases' model
+    and batches at ``n_fused=5``, in turns with the eager steps, each
+    replayed step held against an eager one from the same state, beside
+    the graphed plain Mixtral step's tokens/s (phase 13a);
+21. ``make_hybrid_mesh()`` on a one-process NCCL group is the plain mesh
+    and trains a flagship step; ``discover()`` with the runtime gate open
+    finds this card, and the device-file probe ``/dev/nvidia0``.
 
 Each phase's wall seconds are printed after the last phase. The last two
 lines are the kernel table and the device record, as JSON.
@@ -179,8 +196,10 @@ Each path (serving, int8 serving, graphs, distill, speculative, training,
 two-pass, fused training, graphed two-pass, Mixtral's training, fused
 training, serving drive and serving rounds, the ring's two cases, the
 mesh step with flash and with the ring, the pipeline with each, the
-mesh engines: flagship, 8B and speculative, and the MoE mesh step,
-pipeline and mesh engine) counts its kernel launches
+mesh engines: flagship, 8B and speculative, the MoE mesh step,
+pipeline and mesh engine, and the graphed mesh step with flash and with
+the ring, pipeline, MoE mesh step and MoE pipeline) counts its kernel
+launches
 from 0 and reads them just after it ran; the table gives each path's count
 and their sum. A decode graph captures no flash launch, so each serving
 path's count stays exact: the forward kernel once a layer for each
@@ -1787,10 +1806,12 @@ def one_step_parity(step_fn, state, batches) -> dict:
     loss and state difference (each held to TOLERANCE in bf16: the orders
     of the fused backward's dq sums and of cuBLAS's products are the only
     differences) and whether every loss and state tensor is bit-equal."""
+    from nanotpu_torch.parallel.mesh import local
     from nanotpu_torch.tree import leaves
 
     g = step_fn.graphed
-    tensors = leaves(state.params) + leaves(state.opt_state)
+    # a mesh state's local shards (a DTensor op would search its sharding)
+    tensors = leaves(local(state.params)) + leaves(local(state.opt_state))
     loss_diff = state_diff = 0.0
     bit_equal = True
     for tokens in batches:
@@ -3397,6 +3418,403 @@ def moe_mesh_serving_phase(card: str) -> dict:
             "launches": launches}
 
 
+#: the graphed mesh phases' runs: the training flagship's steps a run (two
+#: calls of FUSE_STEPS), and the order of the runs of each path: the eager
+#: mesh step, the graphed mesh step and (flash) the graphed plain step
+GRAPHED_MESH_STEPS = 2 * FUSE_STEPS
+GRAPHED_FLASH_ORDER = ("eager", "graphed", "plain", "graphed", "eager")
+GRAPHED_ORDER = ("eager", "graphed", "graphed", "eager")
+GRAPHED_PAIR_ORDER = ("eager", "graphed")
+
+
+def train_call(step, state, block):
+    """One call of ``step`` on ``block`` [n, B, S+1]: the block, fused; its
+    steps one by one, eager. The state and the last step's loss."""
+    from nanotpu_torch.parallel.train import FusedTrainStep
+
+    if isinstance(step, FusedTrainStep):
+        return step(state, block)
+    for row in block:
+        state, loss = step(state, row)
+    return state, loss
+
+
+def replay_loss_parity(step_fn, state, tokens, loss_of) -> dict:
+    """The loss of one replayed step of ``step_fn`` on ``tokens`` against
+    ``loss_of(state, tokens)``, the eager mesh step's loss from the same
+    state (its forward, without gradients), held to TOLERANCE in bf16: a
+    state too large to copy beside its graph's pool and an eager step's
+    temporaries (Mixtral's) is held by its loss alone."""
+    with torch.no_grad():
+        want = loss_of(state, tokens).item()
+    step_fn.graphed.step(tokens)
+    got = step_fn.graphed.loss.item()
+    out = {"replayed_loss": got, "eager_loss": want,
+           "loss_diff": abs(got - want)}
+    print(f"one replayed step's loss against the eager step's from the "
+          f"same state: {out}")
+    if not out["loss_diff"] <= TOLERANCE[torch.bfloat16]:
+        raise AssertionError(f"a replayed step's loss differs from an eager "
+                             f"one's: {out}")
+    return out
+
+
+def train_turns(label: str, card: str, make, batches, fuse: int,
+                order: tuple, launches_per_step: int,
+                parity=None) -> dict:
+    """Runs of ``make(kind)``'s (step function, fresh state) over
+    ``batches`` in calls of ``fuse`` steps, for each kind of ``order`` in
+    turn ("eager": the eager mesh step; "graphed": it fused, one replayed
+    CUDA graph a step; "plain": the plain step fused): each run's losses
+    at each call's end, steady tokens/s over every call but the first,
+    peak memory, launches (counted from 0 just before the run, read just
+    after, exact), and, graphed, the capture's seconds, the replays and
+    the graph pool's bytes. The first run of a kind is then profiled for
+    one call (wall, device busy, idle share), and the first graphed run
+    holds a replayed step against an eager one from the same state
+    (``parity(step, state, batches)``, ``one_step_parity`` on the first
+    batch unless given). Runs by kind, in turn order."""
+    from nanotpu_torch.parallel.train import FusedTrainStep
+
+    n = len(batches)
+    B, S = batches.shape[1], batches.shape[2] - 1
+    runs: dict = {}
+    for kind in order:
+        # the last run's graph and state sit in a reference cycle (the
+        # graphed body holds its step and state): free them first
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        step, state = make(kind)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses = []
+        for c in range(n // fuse):
+            block = batches[c * fuse:(c + 1) * fuse]
+            state, loss = train_call(step, state, block)
+            losses.append(loss)
+            if c == 0:  # the first call (warm-up and capture) is left out
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        steady_s = time.perf_counter() - t0
+        run = {"losses": [x.item() for x in losses],
+               "tok_s": (n - fuse) * B * S / steady_s,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": read_launches()}
+        what = f"{label}, {kind}"
+        check_train_launches(run["launches"], launches_per_step, n, False,
+                             what)
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"{what}: losses {run['losses']}")
+        if isinstance(step, FusedTrainStep):
+            run["graph"] = check_graphed(step, n, what)
+            run["pool_bytes"] = graph_pool_bytes()
+        if kind not in runs:
+            if kind == "graphed":
+                run["one_step_parity"] = (parity or (
+                    lambda st, s, b: one_step_parity(st, s, b[:1])))(
+                        step, state, batches)
+            run["profile"] = idle_profile(
+                lambda: train_call(step, state, batches[:fuse]))
+        print(f"{what} ({n} steps, B={B} S={S}, {fuse} a call) on {card}: "
+              f"{run}")
+        runs.setdefault(kind, []).append(run)
+        del step, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def summarize_turns(label: str, card: str, runs: dict,
+                    plain_tok_s: float | None = None) -> dict:
+    """Prints the runs' tokens/s by kind in turn order, the graphed mesh
+    step's against the eager one's and the graphed plain step's, and the
+    idle shares, capture seconds and peak memory; returns them."""
+    tok = {kind: [r["tok_s"] for r in rs] for kind, rs in runs.items()}
+    if plain_tok_s is None:
+        plain_tok_s = float(np.mean(tok["plain"]))
+    graphed = float(np.mean(tok["graphed"]))
+    out = {"tok_s": tok, "plain_graphed_tok_s": plain_tok_s,
+           "graphed_over_eager": graphed / float(np.mean(tok["eager"])),
+           "graphed_over_plain_graphed": graphed / plain_tok_s,
+           "idle_share": {k: rs[0]["profile"]["idle_share"]
+                          for k, rs in runs.items()},
+           "capture_s": [r["graph"]["capture_s"] for r in runs["graphed"]],
+           "peak_mem_gib": {k: [r["peak_mem_gib"] for r in rs]
+                            for k, rs in runs.items()},
+           "pool_bytes": [r["pool_bytes"] for r in runs["graphed"]]}
+    print(f"{label} on {card}: tokens/s {tok}; graphed mesh over eager mesh "
+          f"{out['graphed_over_eager']:.3f}x, over the graphed plain step "
+          f"({plain_tok_s:.1f}) {out['graphed_over_plain_graphed']:.3f}x; "
+          f"idle share {out['idle_share']}; capture s {out['capture_s']}; "
+          f"peak memory GiB {out['peak_mem_gib']}; graph pool bytes "
+          f"{out['pool_bytes']}")
+    return out
+
+
+def hold_first_call(label: str, runs: dict) -> float:
+    """The graphed runs' loss at the end of the first call against the
+    first eager run's at that step, held to TOLERANCE in bf16 (the dense
+    trajectories stay within ~3e-3 of each other over 10 steps)."""
+    want = runs["eager"][0]["losses"][0]
+    diff = max(abs(r["losses"][0] - want) for r in runs["graphed"])
+    if not diff <= TOLERANCE[torch.bfloat16]:
+        raise AssertionError(f"{label}: graphed losses "
+                             f"{[r['losses'] for r in runs['graphed']]} "
+                             f"against eager {runs['eager'][0]['losses']}")
+    return diff
+
+
+def graphed_sum(runs: dict) -> dict:
+    """The graphed runs' launches, summed: the path's count."""
+    out: dict = {}
+    for r in runs["graphed"]:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def graphed_mesh_phase(card: str) -> dict:
+    """The sharded train step fused (``build_train_step(..., mesh=mesh,
+    n_fused=FUSE_STEPS)``) on a one-process NCCL mesh: the training
+    flagship (8 layers, B=8, S=2048, bf16) with flash attention, then the
+    ring at sp=1, each step one replay of a CUDA graph that holds the
+    step's NCCL collectives. Runs of GRAPHED_MESH_STEPS steps from one
+    state on the same batches, in turns: for flash GRAPHED_FLASH_ORDER
+    (the eager mesh step, the graphed one, the graphed plain step), for
+    the ring GRAPHED_PAIR_ORDER (``train_turns``); each graphed run's loss at
+    its first call's end against the eager run's (``hold_first_call``),
+    launches exact."""
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import llama
+    from nanotpu_torch.parallel import train
+    from nanotpu_torch.tree import map_tree
+
+    cfg = llama.LlamaConfig(**dict(train._PRESETS[("llama", "flagship")],
+                                   attn_impl="flash"))
+    opt = train.make_optimizer()
+    base = train.init_train_state(
+        torch.Generator(device="cuda").manual_seed(6), cfg, opt,
+        device="cuda")
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(7),
+                           table, (GRAPHED_MESH_STEPS, TRAIN_B, TRAIN_S + 1))
+
+    def fresh():
+        return train.TrainState(map_tree(lambda t: t.detach().clone(),
+                                         base.params),
+                                map_tree(lambda t: t.clone(), base.opt_state),
+                                0)
+
+    out = {"launches": {}}
+    with nccl_world() as mesh:
+        for attn, order in (("flash", GRAPHED_FLASH_ORDER),
+                            ("ring", GRAPHED_PAIR_ORDER)):
+            c = dataclasses.replace(cfg, attn_impl=attn)
+
+            def make(kind):
+                if kind == "plain":
+                    return (train.build_train_step(c, opt, n_fused=FUSE_STEPS),
+                            fresh())
+                return (train.build_train_step(
+                    c, opt, mesh=mesh,
+                    n_fused=FUSE_STEPS if kind == "graphed" else 1),
+                    train.place_state(fresh(), c, mesh))
+
+            label = f"graphed mesh step (nccl, world 1, attn {attn})"
+            runs = train_turns(label, card, make, batches, FUSE_STEPS, order,
+                               cfg.n_layers)
+            plain = (None if attn == "flash"
+                     else out["flash"]["plain_graphed_tok_s"])
+            out[attn] = summarize_turns(label, card, runs, plain)
+            out[attn]["first_call_diff"] = hold_first_call(label, runs)
+            out[attn]["one_step_parity"] = \
+                runs["graphed"][0]["one_step_parity"]
+            out["launches"]["mesh_fused" if attn == "flash"
+                            else "mesh_ring_fused"] = graphed_sum(runs)
+    del base
+    return out
+
+
+def graphed_pipeline_phase(card: str, plain_graphed_tok_s: float) -> dict:
+    """The GPipe pipeline fused (pp=1, PIPE_MICRO microbatches, the
+    training flagship as nanotpu's stacked tree, flash) on a one-process
+    NCCL mesh: the eager pipelined step and the graphed one in turns
+    (GRAPHED_ORDER), GRAPHED_MESH_STEPS steps a run from one state on the
+    same batches: as ``graphed_mesh_phase``, launches one forward and one
+    fused backward a layer a microbatch a step. The graph captures the
+    stage masks' fills (a copy from the host would synchronize, which
+    capture refuses). Beside them the graphed plain step's tokens/s
+    (``plain_graphed_tok_s``: the graphed mesh phase's, this call)."""
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import llama
+    from nanotpu_torch.parallel import pipeline as tpp
+    from nanotpu_torch.parallel import train
+
+    cfg = llama.LlamaConfig(**dict(train._PRESETS[("llama", "flagship")],
+                                   attn_impl="flash"))
+    opt = train.make_optimizer()
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(7),
+                           table, (GRAPHED_MESH_STEPS, TRAIN_B, TRAIN_S + 1))
+    specs = tpp.llama_pp_param_specs(cfg)
+    with nccl_world() as mesh:
+        def make(kind):
+            stacked = tpp.stack_layers(train.init_train_state(
+                torch.Generator(device="cuda").manual_seed(6), cfg, opt,
+                device="cuda").params)
+            state = train.place_state(
+                train.TrainState(stacked, opt.init(stacked), 0), cfg, mesh,
+                param_specs=specs)
+            return train.build_train_step(
+                cfg, opt, loss_fn=tpp.make_pipelined_loss(mesh, PIPE_MICRO),
+                mesh=mesh, param_specs=specs,
+                n_fused=FUSE_STEPS if kind == "graphed" else 1), state
+
+        label = f"graphed pipeline (nccl, world 1, pp=1, M={PIPE_MICRO})"
+        runs = train_turns(label, card, make, batches, FUSE_STEPS,
+                           GRAPHED_ORDER, cfg.n_layers * PIPE_MICRO)
+    out = summarize_turns(label, card, runs, plain_graphed_tok_s)
+    out["first_call_diff"] = hold_first_call(label, runs)
+    out["one_step_parity"] = runs["graphed"][0]["one_step_parity"]
+    out["launches"] = graphed_sum(runs)
+    return out
+
+
+def moe_graphed_phase(card: str, plain_graphed_tok_s: float) -> dict:
+    """Mixtral's mesh step and its pipeline (pp=1, MOE_PIPE_MICRO
+    microbatches) fused (``n_fused=MOE_FUSE_STEPS``) on a one-process NCCL
+    mesh: 8x7B's widths at MOE_TRAIN_LAYERS layers, B=4, S=2048, flash,
+    MOE_MESH_STEPS steps a run from one state on the same batches, the
+    eager step and the graphed one in turns (GRAPHED_ORDER, each state
+    drawn anew from one seed and freed after its run); the graphs hold
+    the ep and tp collectives, the router logits' gathers and the expert
+    inputs' sums. The runs are a pair (GRAPHED_PAIR_ORDER). MoE
+    trajectories part within a few steps (bf16 routing chaos), so a
+    graphed run is held a step at a time, its first replayed step's loss
+    against the eager step's from the same state (``replay_loss_parity``:
+    the state, its graph's pool and an eager step's temporaries do not fit
+    the card beside a copy of the state), and its losses printed beside
+    the eager ones; launches exact. Beside them the graphed plain step's
+    tokens/s (``plain_graphed_tok_s``: the Mixtral fused phase's, this
+    call)."""
+    from nanotpu_torch.data.synthetic import markov_batch, markov_table
+    from nanotpu_torch.models import mixtral
+    from nanotpu_torch.parallel import mesh as tmesh
+    from nanotpu_torch.parallel import pipeline as tpp
+    from nanotpu_torch.parallel import train
+
+    cfg = mixtral_config(MOE_TRAIN_LAYERS)
+    opt = train.make_optimizer()
+    table = markov_table(cfg.vocab_size, device="cuda")
+    batches = markov_batch(torch.Generator(device="cuda").manual_seed(1),
+                           table, (MOE_MESH_STEPS, MOE_TRAIN_B, TRAIN_S + 1))
+
+    def stacked_init(c, g, device=None):
+        return tpp.stack_layers(mixtral.init_params(c, g, device=device))
+
+    out = {"launches": {}}
+    with nccl_world() as mesh:
+        for path in ("mesh", "pipeline"):
+            piped = path == "pipeline"
+            specs = (tpp.mixtral_pp_param_specs(cfg) if piped
+                     else tmesh.mixtral_param_specs(cfg))
+            loss_fn = (tpp.make_pipelined_loss(mesh, MOE_PIPE_MICRO, "mixtral")
+                       if piped else mixtral.loss_fn)
+
+            def make(kind):
+                state = train.place_state(train.init_train_state(
+                    torch.Generator(device="cuda").manual_seed(0), cfg, opt,
+                    device="cuda",
+                    init_fn=stacked_init if piped else mixtral.init_params),
+                    cfg, mesh, param_specs=specs)
+                return train.build_train_step(
+                    cfg, opt, loss_fn=loss_fn, mesh=mesh, param_specs=specs,
+                    n_fused=MOE_FUSE_STEPS if kind == "graphed" else 1), state
+
+            shard = tmesh.Shards(mesh, specs)
+
+            def loss_of(st, tokens):
+                return shard.sum_over_data(loss_fn(
+                    tmesh.local(st.params), shard.rows(tokens), cfg,
+                    shard=shard))
+
+            label = (f"graphed MoE {path} (nccl, world 1, {cfg.n_layers} "
+                     f"layers at 8x7B width"
+                     + (f", pp=1, M={MOE_PIPE_MICRO})" if piped else ")"))
+            runs = train_turns(
+                label, card, make, batches, MOE_FUSE_STEPS,
+                GRAPHED_PAIR_ORDER,
+                cfg.n_layers * (MOE_PIPE_MICRO if piped else 1),
+                parity=lambda step, state, b: replay_loss_parity(
+                    step, state, b[0], loss_of))
+            out[path] = summarize_turns(label, card, runs,
+                                        plain_graphed_tok_s)
+            out[path]["losses"] = {k: [r["losses"] for r in rs]
+                                   for k, rs in runs.items()}
+            out[path]["one_step_parity"] = \
+                runs["graphed"][0]["one_step_parity"]
+            out["launches"][f"moe_{path}_fused"] = graphed_sum(runs)
+    return out
+
+
+def hybrid_discovery_phase(card: str) -> dict:
+    """``make_hybrid_mesh()`` on a one-process NCCL group (one host, one
+    slice) gives the plain mesh, and one eager training flagship step
+    trains on it; ``discover()`` with the runtime gate open finds this
+    card (its count and name), and the device-file probe finds
+    ``/dev/nvidia0``."""
+    from nanotpu_torch.agent import discovery
+    from nanotpu_torch.models import llama
+    from nanotpu_torch.parallel import mesh as tmesh
+    from nanotpu_torch.parallel import train
+
+    with nccl_world() as mesh:
+        hybrid = tmesh.make_hybrid_mesh()
+        same = (hybrid.mesh_dim_names == mesh.mesh_dim_names
+                and torch.equal(hybrid.mesh, mesh.mesh)
+                and hybrid.device_type == "cuda")
+        cfg = llama.LlamaConfig(**dict(train._PRESETS[("llama", "flagship")],
+                                       attn_impl="flash"))
+        opt = train.make_optimizer()
+        state = train.place_state(train.init_train_state(
+            torch.Generator(device="cuda").manual_seed(6), cfg, opt,
+            device="cuda"), cfg, hybrid)
+        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                               device="cuda", generator=torch.Generator(
+                                   device="cuda").manual_seed(8))
+        state, loss = train.build_train_step(cfg, opt, mesh=hybrid)(state,
+                                                                    tokens)
+        loss = loss.item()
+        del state
+    saved = os.environ.get("NANOTPU_AGENT_USE_TORCH")
+    os.environ["NANOTPU_AGENT_USE_TORCH"] = "1"
+    try:
+        found = discovery.discover()
+    finally:
+        if saved is None:
+            del os.environ["NANOTPU_AGENT_USE_TORCH"]
+        else:
+            os.environ["NANOTPU_AGENT_USE_TORCH"] = saved
+    files = discovery._from_devfiles()
+    env = discovery._from_env(dict(os.environ))
+    out = {"hybrid_is_plain": same, "loss": loss,
+           "discovered": dataclasses.asdict(found),
+           "devfiles": files and dataclasses.asdict(files),
+           "env": env and dataclasses.asdict(env),
+           "NVIDIA_VISIBLE_DEVICES": os.environ.get("NVIDIA_VISIBLE_DEVICES")}
+    print(f"hybrid mesh and discovery on {card}: {out}")
+    if not (same and np.isfinite(loss)):
+        raise AssertionError(f"make_hybrid_mesh at world 1: {out}")
+    if (found.n_chips, found.kind) != (torch.cuda.device_count(),
+                                       torch.cuda.get_device_name(0)):
+        raise AssertionError(f"discover() found {found}")
+    if files is None or "/dev/nvidia0" not in files.device_paths:
+        raise AssertionError(f"the device-file probe found {files}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3460,6 +3878,11 @@ def main() -> None:
     moe_meshed = timed(moe_mesh_training_phase, card)
     moe_piped = timed(moe_pipeline_phase, card)
     moe_mesh_served = timed(moe_mesh_serving_phase, card)
+    graphed_meshed = timed(graphed_mesh_phase, card)
+    graphed_piped = timed(graphed_pipeline_phase, card,
+                          graphed_meshed["flash"]["plain_graphed_tok_s"])
+    moe_graphed = timed(moe_graphed_phase, card, moe_fused["tok_s"])
+    timed(hybrid_discovery_phase, card)
     print(f"phase wall seconds on {card}: {phase_s}; all phases "
           f"{sum(phase_s.values()):.1f} s")
 
@@ -3478,6 +3901,8 @@ def main() -> None:
                "moe_mesh_train": moe_meshed["mesh"]["launches"],
                "moe_pipeline": moe_piped["pipeline"]["launches"],
                "moe_mesh_serving": moe_mesh_served["launches"],
+               "pipeline_fused": graphed_piped["launches"],
+               **graphed_meshed["launches"], **moe_graphed["launches"],
                **ring["launches"], **meshed["launches"],
                **piped["launches"], **mesh_served["launches"]}
 

@@ -2,8 +2,9 @@
 
 nanotpu's recipe is a six-axis mesh, PartitionSpecs on the parameters, and
 XLA inserting the collectives. The port keeps the mesh (a ``DeviceMesh``
-over every process of the job, one process a card), the axes and the specs,
-and places parameters as DTensors by those specs. Axes, in nanotpu's order:
+over every process of the job, one process a card; over several hosts,
+:func:`make_hybrid_mesh`), the axes and the specs, and places parameters
+as DTensors by those specs. Axes, in nanotpu's order:
 
 * ``dp``   — pure data parallel (gradients all-reduced)
 * ``pp``   — pipeline stages (GPipe, :mod:`.pipeline`)
@@ -29,6 +30,7 @@ experts' inputs summed over them (backward: the same sum).
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.distributed as dist
@@ -92,12 +94,78 @@ def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1, sp: int = 1,
     err = mesh_size_error(dp, fsdp, tp, sp, ep, pp, dist.get_world_size())
     if err:
         raise ValueError(err)
+    return init_device_mesh(_mesh_device_type(device),
+                            (dp, pp, fsdp, tp, sp, ep), mesh_dim_names=AXES)
+
+
+def _mesh_device_type(device) -> str:
+    """``device``'s type, by default the group's: ``cuda`` under nccl,
+    ``cpu`` under gloo."""
     if device is None:
-        kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return torch.device(device).type
+
+
+def host_of_rank():
+    """The default ``slice_of`` of :func:`make_hybrid_mesh`: a rank's host,
+    ``rank // local_world``, where ``local_world`` is torchrun's
+    ``LOCAL_WORLD_SIZE`` when it is set, else the host's card count under
+    nccl (one process a card); a gloo group without the variable is one
+    host."""
+    n = os.environ.get("LOCAL_WORLD_SIZE")
+    if n:
+        local_world = int(n)
+    elif dist.get_backend() == "nccl":
+        local_world = torch.cuda.device_count()
     else:
-        kind = torch.device(device).type
-    return init_device_mesh(kind, (dp, pp, fsdp, tp, sp, ep),
-                            mesh_dim_names=AXES)
+        return lambda rank: 0
+    return lambda rank: rank // local_world
+
+
+def make_hybrid_mesh(dcn_dp: int = 0, dp: int = 1, fsdp: int = 1,
+                     tp: int = 1, sp: int = 1, ep: int = 1, pp: int = 1,
+                     device=None, slice_of=None) -> DeviceMesh:
+    """A mesh over several slices, nanotpu's: ``dcn_dp`` is the outermost
+    axis and the only one that crosses slices, so only the gradient
+    all-reduce of pure data parallelism rides the slow network between
+    them; every other axis stays inside a slice.
+
+    GPUs have no slice: NVLink inside a host plays ICI's part and the
+    network between hosts DCN's, so a slice is a host. ``slice_of(rank)``
+    names a rank's slice (:func:`host_of_rank` by default; the dry run
+    gives synthetic slices). ``dcn_dp=0`` takes the slice count; a
+    ``dcn_dp`` that contradicts it is refused; one slice gives
+    :func:`make_mesh`. Each slice must hold ``dp*pp*fsdp*tp*sp*ep``
+    ranks. The axes are :data:`AXES`, ``dp`` of size ``dcn_dp * dp`` with
+    each slice's ranks a contiguous block of it, slices in sorted order
+    and each slice's ranks in order."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_hybrid_mesh needs a joined process group")
+    slice_of = slice_of or host_of_rank()
+    by_slice: dict = {}
+    for r in range(dist.get_world_size()):
+        by_slice.setdefault(slice_of(r), []).append(r)
+    slice_ids = sorted(by_slice)
+    n_slices = len(slice_ids)
+    if dcn_dp == 0:
+        dcn_dp = n_slices
+    if dcn_dp != n_slices:
+        # also refuses an explicit dcn_dp=1 over several slices: the plain
+        # mesh would lay the inner axes across the network
+        raise ValueError(f"dcn_dp={dcn_dp} but devices span {n_slices} "
+                         "slice(s)")
+    if dcn_dp == 1:
+        return make_mesh(dp=dp, fsdp=fsdp, tp=tp, sp=sp, ep=ep, pp=pp,
+                         device=device)
+    per_slice = dp * pp * fsdp * tp * sp * ep
+    for s, members in by_slice.items():
+        if len(members) != per_slice:
+            raise ValueError(f"slice {s} has {len(members)} devices, mesh "
+                             f"needs {per_slice} per slice")
+    layout = torch.tensor([by_slice[s] for s in slice_ids])
+    return DeviceMesh(_mesh_device_type(device),
+                      layout.reshape(dcn_dp * dp, pp, fsdp, tp, sp, ep),
+                      mesh_dim_names=AXES)
 
 
 def axis_sizes(mesh) -> dict[str, int]:
@@ -455,7 +523,19 @@ class Shards:
         picked = self.tp_out(torch.where(hit, picked, torch.zeros_like(picked)))
         return (m + torch.log(total) - picked).sum()
 
-    # -- sequence parallel -------------------------------------------------
+    # -- the step's batch: rows over dp and fsdp, the sequence over sp -----
+    def rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the global batch ``tokens`` [B, ...] that
+        every process holds, by BATCH_SPEC (dp outermost, then fsdp): a
+        view, so a captured step reads them from the batch's buffer."""
+        n = self.size["dp"] * self.size["fsdp"]
+        if tokens.shape[0] % n:
+            raise ValueError(f"batch {tokens.shape[0]} does not split over "
+                             f"dp*fsdp = {n}")
+        B = tokens.shape[0] // n
+        row = (self.rank["dp"] * self.size["fsdp"] + self.rank["fsdp"]) * B
+        return tokens[row:row + B]
+
     def seq_block(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous sp slice of dim 1."""
         n, r = self.size["sp"], self.rank["sp"]

@@ -50,11 +50,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 
 from nanotpu_torch.models import llama, mixtral
 from nanotpu_torch.parallel.mesh import (
-    BATCH_SPEC,
     P,
     Shards,
     axis_sizes,
@@ -181,8 +180,11 @@ def _pipeline_body(local_layers, xm, cos, sin, cfg, shard: Shards,
         layer_fn = llama._remat_layer(cfg)
     else:
         layer_fn = llama.decoder_layer
-    first = torch.tensor(rank == 0, device=xm.device)
-    last = torch.tensor(rank == n_stages - 1, device=xm.device)
+    # fills on the device: a tensor copied from the host would synchronize,
+    # which a captured step cannot
+    first = torch.full((), rank == 0, dtype=torch.bool, device=xm.device)
+    last = torch.full((), rank == n_stages - 1, dtype=torch.bool,
+                      device=xm.device)
 
     recv = torch.zeros_like(xm[0])
     outs = [None] * n_micro
@@ -239,18 +241,12 @@ def _pipelined_logits(params, tokens, cfg, shard: Shards, n_micro: int):
     return logits, (None if aux is None else aux / n_micro)
 
 
-def _rows(tokens, mesh, shard: Shards):
-    """This rank's rows (BATCH_SPEC) and sequence block (sp) of the global
-    ``tokens`` every process holds."""
-    rows = distribute_tensor(tokens, mesh, placements_for(mesh, BATCH_SPEC, 2),
-                             src_data_rank=None).to_local()
-    return shard.seq_block(rows)
-
-
 def _forward(params, tokens, cfg, mesh, n_micro: int):
     check_pp_divisibility(cfg, mesh, tokens.shape[0], n_micro)
     shard = Shards(mesh, pp_param_specs(cfg))
-    logits, aux = _pipelined_logits(local(params), _rows(tokens, mesh, shard),
+    # this rank's rows and sequence block of the global tokens
+    logits, aux = _pipelined_logits(local(params),
+                                    shard.seq_block(shard.rows(tokens)),
                                     cfg, shard, n_micro)
     split = placements_for(mesh, P(("dp", "fsdp"), "sp", "tp"), 3)
     return DTensor.from_local(logits, mesh, split, run_check=False

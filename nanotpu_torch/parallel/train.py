@@ -22,7 +22,9 @@ parameter is not split on, clips by the global norm and updates its shards
 in place. Mixtral's experts split over ``ep`` (their gradients stay with
 their rank); its routing is global over the step's tokens. ``--pp`` > 1
 trains nanotpu's stacked tree through the GPipe pipeline (:mod:`.pipeline`,
-``--microbatches`` of them), Llama's or Mixtral's.
+``--microbatches`` of them), Llama's or Mixtral's. ``--fuse-steps`` takes
+any of these meshes: on a card each step replays one CUDA graph of the
+sharded step, its NCCL collectives captured in it.
 
 Run:  python -m nanotpu_torch.parallel.train --preset flagship --attn flash
       --seq 2049 --batch 8 --data markov --steps 24 --fuse-steps 8
@@ -52,7 +54,6 @@ from nanotpu_torch.models import llama, mixtral
 from nanotpu_torch.ops import attention
 from nanotpu_torch.parallel import distributed, pipeline
 from nanotpu_torch.parallel.mesh import (
-    BATCH_SPEC,
     P,
     Shards,
     check_divisibility,
@@ -180,35 +181,35 @@ def build_train_step(
     state's tensors are updated in place; the loss is detached and stays
     on the device.
 
-    With ``mesh`` (any size, one included) the step is the sharded one,
-    :func:`mesh_train_step`, on a state from :func:`place_state`: the Llama
-    or the Mixtral loss (``cfg``'s specs unless ``param_specs`` are given),
-    or a pipelined one (:func:`.pipeline.make_pipelined_loss`, on the
-    stacked tree placed by :func:`.pipeline.pp_param_specs`)."""
+    With ``mesh`` (any size, one included) the step's body is the sharded
+    one, :func:`mesh_train_body`, on a state from :func:`place_state`: the
+    Llama or the Mixtral loss (``cfg``'s specs unless ``param_specs`` are
+    given), or a pipelined one (:func:`.pipeline.make_pipelined_loss`, on
+    the stacked tree placed by :func:`.pipeline.pp_param_specs`); fused,
+    each of its steps is that body."""
     if n_fused < 1:
         raise ValueError(f"n_fused must be at least 1, not {n_fused}")
     if mesh is not None:
-        if n_fused != 1:
-            raise ValueError("fused steps on a mesh are not ported yet")
         if not (loss_fn in (None, llama.loss_fn, mixtral.loss_fn)
                 or isinstance(loss_fn, pipeline.PipelinedLoss)):
             raise ValueError("a mesh trains the Llama or Mixtral loss, or a "
                              "pipelined one: a loss that takes a mesh's "
                              "shards")
-        return mesh_train_step(cfg, optimizer, mesh,
+        body = mesh_train_body(cfg, optimizer, mesh,
                                param_specs or model_param_specs(cfg),
                                loss_fn or llama.loss_fn)
-    loss_fn = loss_fn or llama.loss_fn
+    else:
+        loss_fn = loss_fn or llama.loss_fn
 
-    def body(params, opt_state, tokens: torch.Tensor) -> torch.Tensor:
-        ps = leaves(params)
-        for p in ps:
-            if not p.requires_grad:
-                p.requires_grad_(True)
-        loss = loss_fn(params, tokens, cfg)
-        grads = torch.autograd.grad(loss, ps)
-        optimizer.update(grads, opt_state, params)
-        return loss.detach()
+        def body(params, opt_state, tokens: torch.Tensor) -> torch.Tensor:
+            ps = leaves(params)
+            for p in ps:
+                if not p.requires_grad:
+                    p.requires_grad_(True)
+            loss = loss_fn(params, tokens, cfg)
+            grads = torch.autograd.grad(loss, ps)
+            optimizer.update(grads, opt_state, params)
+            return loss.detach()
 
     if n_fused > 1:
         return FusedTrainStep(body, n_fused)
@@ -220,38 +221,33 @@ def build_train_step(
     return step_fn
 
 
-def mesh_train_step(cfg, optimizer: AdamW, mesh, specs,
+def mesh_train_body(cfg, optimizer: AdamW, mesh, specs,
                     loss_fn: Callable = llama.loss_fn):
-    """(state, tokens [B, S+1]) -> (state, loss) on ``mesh``: every process
-    passes the same global batch and keeps its rows by BATCH_SPEC; the
-    model runs on this rank's shards (``loss_fn(params, rows, cfg,
-    shard=...)``, this rank's share of the mean); each gradient sums over the data
-    axes its parameter is not split on (fsdp's by the reduce-scatter of
-    the gather at use); AdamW clips by the norm of the whole gradient tree
-    and updates the local shards in place, so every DTensor keeps its
-    placements. The loss returned is the global batch's, on every rank."""
+    """``body(params, opt_state, tokens [B, S+1]) -> loss``, one step on
+    ``mesh``: ``params`` and ``opt_state`` are trees of DTensors (or their
+    local shards), and every process passes the same global batch and
+    keeps its rows by BATCH_SPEC, a view; the model runs on this rank's
+    shards (``loss_fn(params, rows, cfg, shard=...)``, this rank's share
+    of the mean); each gradient sums over the data axes its parameter is
+    not split on (fsdp's by the reduce-scatter of the gather at use);
+    AdamW clips by the norm of the whole gradient tree and updates the
+    local shards in place, so every DTensor keeps its placements. The loss
+    returned is the global batch's, on every rank. Nothing in it reads
+    the device from the host, so a card captures it as a CUDA graph."""
     shards = Shards(mesh, specs)
-    batch_placements = placements_for(mesh, BATCH_SPEC, 2)
 
-    def step_fn(state: TrainState, tokens: torch.Tensor):
-        rows_split = shards.size["dp"] * shards.size["fsdp"]
-        if tokens.shape[0] % rows_split:
-            raise ValueError(f"batch {tokens.shape[0]} does not split over "
-                             f"dp*fsdp = {rows_split}")
-        params, opt_state = local(state.params), local(state.opt_state)
+    def body(params, opt_state, tokens: torch.Tensor) -> torch.Tensor:
+        params, opt_state = local(params), local(opt_state)
         ps, flat_specs = leaves(params), spec_leaves(specs, params)
         for p in ps:
             p.requires_grad_(True)
-        rows = distribute_tensor(tokens, mesh, batch_placements,
-                                 src_data_rank=None).to_local()
-        loss = loss_fn(params, rows, cfg, shard=shards)
+        loss = loss_fn(params, shards.rows(tokens), cfg, shard=shards)
         grads = shards.reduce_grads(torch.autograd.grad(loss, ps), flat_specs)
         optimizer.update(grads, opt_state, params,
                          norm=shards.global_norm(grads, flat_specs))
-        return (TrainState(state.params, state.opt_state, state.step + 1),
-                shards.sum_over_data(loss.detach()))
+        return shards.sum_over_data(loss.detach())
 
-    return step_fn
+    return body
 
 
 def place_state(state: TrainState, cfg, mesh,
@@ -695,9 +691,6 @@ def _run(parser, args, device: torch.device) -> dict:
         parser.error(err)
     mesh = None
     if world > 1:
-        if fuse > 1:
-            parser.error("--fuse-steps > 1 on a mesh of more than one device "
-                         "is not ported yet")
         try:
             if args.model == "mixtral":
                 check_moe_divisibility(cfg, factors)

@@ -871,8 +871,9 @@ def test_graphed_train_steps_equal_eager(card, model, dtype):
     batches: each call's last loss within 1e-6 in f32 (2e-2 in bf16) of
     the eager loss at its step, parameters, moments and count after 8
     steps within a tenth of an Adam step in f32 (2e-2 in bf16)."""
+    gen = torch.Generator(device=card).manual_seed(1)
     tokens = torch.randint(0, 256, (8, 2, 65), device=card,
-                           generator=torch.Generator(device=card).manual_seed(1))
+                           generator=gen)
     eager, want, _ = _train_run(card, model, dtype, 1, 8, tokens)
     got, graphed, step = _train_run(card, model, dtype, 4, 2, tokens)
     loss_tol, state_tol = (1e-6, 3e-5) if dtype == "float32" else (2e-2, 2e-2)
@@ -1306,6 +1307,94 @@ def test_moe_pipeline_step_equals_microbatch_averaged_plain(card, nccl_mesh):
                                        state.params))
     for a, b in zip(leaves(mine), leaves(plain.params)):
         assert (a - b).abs().max() <= 1e-4
+
+
+def _mesh_train_run(card, mesh, model, attn, n_micro, n_fused, tokens):
+    """``tokens`` [8, B, S+1] through a fresh f32 state's mesh step
+    (pipelined over ``n_micro`` microbatches when that is not 0), in calls
+    of ``n_fused`` steps: (each call's loss, final state, step function,
+    flash launches)."""
+    from nanotpu_torch.parallel import pipeline as tpp
+    from nanotpu_torch.parallel import train
+
+    cfg, loss_fn, init_fn = _train_models(card, model, "float32")
+    cfg = dataclasses.replace(cfg, attn_impl=attn)
+    opt = train.make_optimizer()
+    specs = None
+    if n_micro:
+        base = init_fn or tl.init_params
+        init_fn = lambda c, g, device=None: tpp.stack_layers(  # noqa: E731
+            base(c, g, device=device))
+        specs = tpp.pp_param_specs(cfg)
+        loss_fn = tpp.make_pipelined_loss(mesh, n_micro, model)
+    state = train.place_state(
+        train.init_train_state(torch.Generator().manual_seed(0), cfg, opt,
+                               device=card, init_fn=init_fn),
+        cfg, mesh, param_specs=specs)
+    step = train.build_train_step(cfg, opt, loss_fn=loss_fn, n_fused=n_fused,
+                                  mesh=mesh, param_specs=specs)
+    before = (flash_attention.launches, att.flash_bwd_fused.launches)
+    losses = []
+    for c in range(len(tokens) // n_fused):
+        block = tokens[c * n_fused:(c + 1) * n_fused]
+        state, loss = step(state, block[0] if n_fused == 1 else block)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = (flash_attention.launches - before[0],
+                att.flash_bwd_fused.launches - before[1])
+    return [x.item() for x in losses], state, step, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,attn", [("llama", "flash"), ("llama", "ring"),
+                                        ("mixtral", "flash")])
+def test_graphed_mesh_step_equals_eager_mesh_step(card, nccl_mesh, model,
+                                                  attn):
+    """The mesh step at world 1 fused 4 to a call (2 eager warm-up steps,
+    a capture holding its NCCL collectives, 6 replays) against 8 eager
+    mesh steps from the same state on the same batches, f32: each call's
+    last loss within 1e-6 of the eager loss at its step, every local shard
+    of the state within 3e-5 after 8 steps, the count equal; flash forward
+    and fused backward once a layer a step, replays counted."""
+    from nanotpu_torch.parallel.mesh import local
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    tokens = torch.randint(0, 256, (8, 2, 65), device=card,
+                           generator=gen)
+    eager, want, _, _ = _mesh_train_run(card, nccl_mesh, model, attn, 0, 1,
+                                        tokens)
+    got, graphed, step, launches = _mesh_train_run(card, nccl_mesh, model,
+                                                   attn, 0, 4, tokens)
+    assert step.graphed.graph is not None and step.graphed.replays == 6
+    assert graphed.step == want.step == 8
+    assert abs(got[0] - eager[3]) <= 1e-6 and abs(got[1] - eager[7]) <= 1e-6
+    assert launches == (8 * 2, 8 * 2)
+    mine, theirs = local(graphed.opt_state), local(want.opt_state)
+    assert torch.equal(mine["count"], theirs["count"])
+    for a, b in zip(leaves(local(graphed.params)) + leaves(mine),
+                    leaves(local(want.params)) + leaves(theirs)):
+        assert (a - b).abs().max().item() <= 3e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["llama", "mixtral"])
+def test_graphed_pipelined_step_captures(card, nccl_mesh, model):
+    """The pipelined step (pp=1, M=4) fused 4 to a call captures: its stage
+    masks are filled on the device (a tensor copied from the host inside
+    the step would synchronize, which capture refuses), and 6 replays
+    follow the 2 warm-up steps; each call's last loss within 1e-6 of the
+    eager pipelined step's (f32), one forward and one fused backward a
+    layer a microbatch a step."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    tokens = torch.randint(0, 256, (8, 4, 65), device=card,
+                           generator=gen)
+    eager, _, _, _ = _mesh_train_run(card, nccl_mesh, model, "flash", 4, 1,
+                                     tokens)
+    got, _, step, launches = _mesh_train_run(card, nccl_mesh, model, "flash",
+                                             4, 4, tokens)
+    assert step.graphed.graph is not None and step.graphed.replays == 6
+    assert abs(got[0] - eager[3]) <= 1e-6 and abs(got[1] - eager[7]) <= 1e-6
+    assert launches == (8 * 4 * 2, 8 * 4 * 2)
 
 
 @pytest.mark.cuda

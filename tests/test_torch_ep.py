@@ -28,7 +28,18 @@ after one step 3e-5; greedy tokens exactly. One step of Adam divides each
 gradient element by its magnitude plus eps (1e-8), so an element whose
 gradient lies within rounding of zero (under 1e-6 here) moves by what
 rounding decides, up to the learning rate: such elements are held to
-twice the learning rate, and their gradients to 1e-4 as every other."""
+twice the learning rate, and their gradients to 1e-4 as every other.
+
+Each case also runs three steps in one call (``build_train_step(...,
+mesh=, n_fused=3)``) from the same state, against nanotpu's
+``n_fused=3`` (on one device, or on the case's mesh for the pipeline):
+every step's routing decisions exactly those of nanotpu's forward on its
+own parameters before that step, and the last loss, the step count, the
+parameters and Adam's moments after the call, each one-step tolerance
+widened by the step count, three times: loss 3e-5, parameters 9e-5 (six
+times the learning rate where a step's gradient is within rounding of
+zero), moments 3e-5 (the gradients' 1e-4 times Adam's (1 - b1), thrice).
+The CLI runs ``--fuse-steps 3`` beside the unfused run in the group."""
 
 import dataclasses
 import functools
@@ -51,6 +62,7 @@ from nanotpu.models import mixtral as jmix
 from nanotpu.parallel import infer as jinfer
 from nanotpu.parallel import pipeline as jpp
 from nanotpu.parallel import train as jtrain
+from nanotpu.parallel import mesh as jmesh
 from nanotpu.parallel.mesh import make_mesh as jmake_mesh
 from nanotpu_torch.convert import params_from_numpy
 from nanotpu_torch.models import mixtral as tmix
@@ -93,6 +105,7 @@ ENGINE_KW = dict(slots=3, max_len=64, buckets=(16,), chunk_steps=4,
 LOOSE_CF, TIGHT_CF = 8.0, 0.05
 CLI_ARGV = ["--device", "cpu", "--model", "mixtral", "--preset", "tiny",
             "--steps", "3", "--batch", "4", "--seq", "33", "--data", "markov"]
+N_FUSED = 3
 
 CHILD = r"""
 import dataclasses, pickle, sys
@@ -178,6 +191,25 @@ for name, (factors, cfg_name, attn, n_micro, _) in inp["meshes"].items():
     state, step_loss = step(state, tokens)
     res["step_loss"] = step_loss.item()
     res["step_params"] = map_tree(whole, state.params)
+
+    # n_fused steps in one call from the same state (fresh tensors: a
+    # replicated DTensor shares its input's), every step's routing kept
+    params = params_from_numpy(inp["params"][cfg_name], "cpu")
+    if n_micro:
+        params = tpp.stack_layers(params)
+    state = ttrain.place_state(
+        ttrain.TrainState(params, opt.init(params), 0), cfg, mesh,
+        param_specs=specs)
+    step = ttrain.build_train_step(cfg, opt, loss_fn=loss_fn, mesh=mesh,
+                                   param_specs=specs, n_fused=inp["n_fused"])
+    calls.clear()
+    state, fused_loss = step(state, torch.from_numpy(inp["fused"][name]))
+    res["fused"] = {
+        "loss": fused_loss.item(), "step": state.step,
+        "kind": type(step).__name__, "routing": list(calls),
+        "params": map_tree(whole, state.params),
+        "mu": map_tree(whole, state.opt_state["mu"]),
+        "nu": map_tree(whole, state.opt_state["nu"])}
     out[name] = res
 tmix.route_decisions = route
 
@@ -218,6 +250,9 @@ for label, cf in inp["engine_cfs"].items():
 # the trainer's CLI in this group: dp absorbs what --ep leaves
 cli = ttrain.run(inp["cli_argv"] + ["--ep", "2"])
 out["cli"] = {"losses": cli["losses"], "mesh": cli["mesh"]}
+cli = ttrain.run(inp["cli_argv"] + ["--ep", "2", "--fuse-steps", "3"])
+out["cli_fused"] = {"losses": cli["losses"], "mesh": cli["mesh"],
+                    "kind": type(cli["step_fn"]).__name__}
 
 with open(f"{where}/out{rank}.pkl", "wb") as f:
     pickle.dump(out, f)
@@ -239,17 +274,31 @@ def params():
     return out
 
 
-@pytest.fixture(scope="module")
-def tokens():
-    rng = np.random.default_rng(3)
+def _tokens(seed, lead=()):
+    rng = np.random.default_rng(seed)
     by_shape = {}
     out = {}
     for name, (_, cfg, _, _, rows) in MESHES.items():
         if (cfg, rows) not in by_shape:
             by_shape[cfg, rows] = rng.integers(
-                0, CONFIGS[cfg].vocab_size, (rows, 33)).astype(np.int32)
+                0, CONFIGS[cfg].vocab_size, (*lead, rows, 33)).astype(np.int32)
         out[name] = by_shape[cfg, rows]
     return out
+
+
+@pytest.fixture(scope="module")
+def tokens():
+    return _tokens(3)
+
+
+@pytest.fixture(scope="module")
+def fused_tokens(tokens):
+    """Each case's batches of its fused call [N_FUSED, rows, 33], the
+    first its one step's (so that one chain of nanotpu's steps gives
+    both)."""
+    more = _tokens(4, (N_FUSED - 1,))
+    return {name: np.concatenate([tokens[name][None], more[name]])
+            for name in MESHES}
 
 
 def _cfg_fields(cfg):
@@ -296,55 +345,107 @@ def jax_decisions(params, tokens, cfg):
         jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(tokens)))
 
 
-def jax_step(loss_fn, p, tokens):
-    """nanotpu's ``build_train_step`` body on ``p``: (loss, gradients,
-    updated parameters)."""
+def jax_chain(loss_fn, p, blocks):
+    """nanotpu's ``build_train_step`` body carried over ``blocks`` [N, B,
+    S+1] from ``p``: each step's loss and gradients, and the parameters
+    before each step and after the last, as numpy."""
     opt = jtrain.make_optimizer()
 
     @jax.jit
-    def step(p, t):
+    def step(p, o, t):
         loss, grads = jax.value_and_grad(loss_fn)(p, t)
-        updates, _ = opt.update(grads, opt.init(p), p)
-        return loss, grads, optax.apply_updates(p, updates)
+        updates, o = opt.update(grads, o, p)
+        return loss, grads, optax.apply_updates(p, updates), o
 
-    loss, grads, new = step(p, jnp.asarray(tokens))
-    return float(loss), _np(grads), _np(new)
+    losses, grads, params, o = [], [], [_np(p)], opt.init(p)
+    for t in blocks:
+        loss, g, p, o = step(p, o, jnp.asarray(t))
+        losses.append(float(loss))
+        grads.append(_np(g))
+        params.append(_np(p))
+    return losses, grads, params
 
 
-def nanotpu_results(params, tokens):
-    """Each case's routing decisions, step and serving tokens, by nanotpu;
-    cases of one config, row count and schedule computed once."""
+def jax_fused(loss_fn, p, blocks, mesh, specs):
+    """nanotpu's ``build_train_step(..., n_fused=N)`` on ``mesh`` from
+    ``p`` (which its step donates): (last loss, step, parameters, mu, nu)
+    as numpy."""
+    opt = jtrain.make_optimizer()
+    state = jtrain.place_state(
+        jtrain.TrainState(p, opt.init(p), jnp.zeros((), jnp.int32)), None,
+        mesh, param_specs=specs)
+    step = jtrain.build_train_step(None, mesh, opt,
+                                   loss_fn=lambda p, t, _: loss_fn(p, t),
+                                   param_specs=specs, n_fused=len(blocks))
+    state, loss = step(state, jnp.asarray(blocks))
+    adam = state.opt_state[1][0]
+    return _np((float(loss), int(state.step), state.params, adam.mu,
+                adam.nu))
+
+
+def _unstacked(p):
+    n = jax.tree_util.tree_leaves(p["layers"])[0].shape[0]
+    return {**p, "layers": [jax.tree_util.tree_map(lambda x, i=i: x[i],
+                                                   p["layers"])
+                            for i in range(n)]}
+
+
+def _micro_decisions(p, inputs, cfg, n_micro):
+    """nanotpu's decisions by (microbatch, layer) of its forward on each
+    microbatch of ``inputs`` (all of them as one for ``n_micro`` 0)."""
+    if not n_micro:
+        return dict(enumerate(jax_decisions(p, inputs, cfg)))
+    mb = inputs.shape[0] // n_micro
+    out = {}
+    for m in range(n_micro):
+        for layer, d in enumerate(jax_decisions(
+                p, inputs[m * mb:(m + 1) * mb], cfg)):
+            out[m, layer] = d
+    return out
+
+
+def nanotpu_results(params, fused_tokens):
+    """Each case's routing decisions, step, fused steps and serving tokens,
+    by nanotpu; cases of one config, row count and schedule computed
+    once."""
     out, done = {}, {}
     for name, (factors, cfg_name, attn, n_micro, rows) in MESHES.items():
         key = (cfg_name, rows, n_micro, attn if n_micro else None)
         if key not in done:
             cfg = CONFIGS[cfg_name]
-            inputs = tokens[name][:, :-1]
+            blocks = fused_tokens[name]
+            p = jax.tree_util.tree_map(jnp.asarray, params[cfg_name])
             if n_micro:
                 mesh = _jmesh(factors)
                 pcfg = dataclasses.replace(
                     cfg, attn_impl="ring" if attn == "ring" else "dense")
                 fn = jpp.make_pipelined_loss(mesh, n_micro=n_micro,
                                              model="mixtral")
-                p = jpp.stack_layers(jax.tree_util.tree_map(
-                    jnp.asarray, params[cfg_name]))
-                with jax.set_mesh(mesh):
-                    step = jax_step(lambda p, t: fn(p, t, pcfg), p,
-                                    tokens[name])
-                mb = rows // n_micro
-                decisions = {}
-                for m in range(n_micro):
-                    for layer, d in enumerate(jax_decisions(
-                            params[cfg_name], inputs[m * mb:(m + 1) * mb],
-                            cfg)):
-                        decisions[m, layer] = d
+
+                def loss_fn(p, t):
+                    return fn(p, t, pcfg)
+
+                p = jpp.stack_layers(p)
+                specs = jpp.mixtral_pp_param_specs(cfg)
             else:
-                p = jax.tree_util.tree_map(jnp.asarray, params[cfg_name])
-                step = jax_step(lambda p, t: jmix.loss_fn(p, t, cfg), p,
-                                tokens[name])
-                decisions = dict(enumerate(jax_decisions(
-                    params[cfg_name], inputs, cfg)))
-            done[key] = {"step": step, "decisions": decisions}
+                mesh = _jmesh({})
+
+                def loss_fn(p, t):
+                    return jmix.loss_fn(p, t, cfg)
+
+                specs = jmesh.mixtral_param_specs(cfg)
+            with jax.set_mesh(mesh):
+                losses, grads, chain = jax_chain(loss_fn, p, blocks)
+            fused = jax_fused(loss_fn, p, blocks, mesh, specs)
+            before = chain[:-1]
+            if n_micro:
+                before = [_unstacked(b) for b in before]
+            decisions = [_micro_decisions(b, t[:, :-1], cfg, n_micro)
+                         for b, t in zip(before, blocks)]
+            # the first block is the one step's batch
+            done[key] = {"step": (losses[0], grads[0], chain[1]),
+                         "decisions": decisions[0], "fused": fused,
+                         "fused_grads": grads, "fused_decisions": decisions}
         out[name] = done[key]
 
     cfg = jmix.MixtralConfig.tiny()
@@ -362,7 +463,7 @@ def nanotpu_results(params, tokens):
 
 
 @pytest.fixture(scope="module")
-def run(params, tokens, tmp_path_factory):
+def run(params, tokens, fused_tokens, tmp_path_factory):
     """The group of four, started once, and nanotpu's results, computed
     while it runs: (every rank's results by rank, nanotpu's)."""
     where = tmp_path_factory.mktemp("ep")
@@ -372,7 +473,8 @@ def run(params, tokens, tmp_path_factory):
               "meshes": MESHES, "serve_mesh": SERVE_MESH, "prompt": PROMPT,
               "n_new": N_NEW, "requests": REQUESTS, "engine_kw": ENGINE_KW,
               "engine_cfs": {"loose": LOOSE_CF, "tight": TIGHT_CF},
-              "cli_argv": CLI_ARGV}
+              "cli_argv": CLI_ARGV, "fused": fused_tokens,
+              "n_fused": N_FUSED}
     with open(where / "in.pkl", "wb") as f:
         pickle.dump(inputs, f)
     (where / "child.py").write_text(CHILD)
@@ -384,7 +486,7 @@ def run(params, tokens, tmp_path_factory):
          str(where)], cwd=REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(WORLD)]
     try:
-        theirs = nanotpu_results(params, tokens)
+        theirs = nanotpu_results(params, fused_tokens)
         for p in procs:
             _, err = p.communicate(timeout=240)
             assert p.returncode == 0, err[-4000:]
@@ -419,12 +521,13 @@ def _assert_trees_close(got, want, atol):
         np.testing.assert_allclose(x, y, atol=atol, rtol=0)
 
 
-def _port_decisions(res, name):
-    """The port's decisions on one rank: by layer (the plain step), or by
-    (microbatch, layer) from the pipeline's ticks, bubbles left out (a
-    stage takes its own layers' only)."""
+def _port_decisions(res, name, calls=None):
+    """The port's decisions on one rank (of one step: ``calls``, or
+    ``res["routing"]``): by layer (the plain step), or by (microbatch,
+    layer) from the pipeline's ticks, bubbles left out (a stage takes its
+    own layers' only)."""
     _, cfg, _, n_micro, _ = MESHES[name]
-    calls = res["routing"]
+    calls = res["routing"] if calls is None else calls
     if not n_micro:
         return dict(enumerate(calls))
     stage = res["rank"]["pp"]
@@ -437,18 +540,14 @@ def _port_decisions(res, name):
     return out
 
 
-@pytest.mark.parametrize("name", list(MESHES))
-def test_routing_decisions_equal_nanotpus(spmd, nanotpu, name):
-    """Every rank's decisions are nanotpu's, exactly: each token's experts,
-    the capacity slots of those it keeps, which it drops; taken on the
-    global tokens of the step (of the microbatch under pp)."""
-    want = nanotpu[name]["decisions"]
+def _assert_decisions_equal(by_rank, want):
+    """Every rank's decisions (by key) are ``want``'s, exactly, and the
+    ranks together cover every key; capacity drops some choice."""
     dropped = sum(int((~keep).sum()) for d in want.values()
                   for _, _, keep in d)
     assert dropped > 0, "capacity never binds: the case tests no contention"
     covered = set()
-    for res in spmd:
-        got = _port_decisions(res[name], name)
+    for got in by_rank:
         assert got and set(got) <= set(want)
         covered |= set(got)
         for k, decisions in got.items():
@@ -457,6 +556,50 @@ def test_routing_decisions_equal_nanotpus(spmd, nanotpu, name):
                 np.testing.assert_array_equal(gk, wk)
                 np.testing.assert_array_equal(gp[wk], wp[wk])
     assert covered == set(want)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_routing_decisions_equal_nanotpus(spmd, nanotpu, name):
+    """Every rank's decisions are nanotpu's, exactly: each token's experts,
+    the capacity slots of those it keeps, which it drops; taken on the
+    global tokens of the step (of the microbatch under pp)."""
+    _assert_decisions_equal([_port_decisions(res[name], name)
+                             for res in spmd], nanotpu[name]["decisions"])
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_fused_steps_route_and_train_as_nanotpu(spmd, nanotpu, name):
+    """Three steps in one call: each step's routing decisions, on every
+    rank, exactly nanotpu's on its parameters before that step; the last
+    loss on every rank, the step count, every parameter and Adam's
+    moments after the call against nanotpu's ``n_fused=3`` (the module
+    docstring's widened tolerances)."""
+    want = nanotpu[name]
+    loss, step, params, mu, nu = want["fused"]
+    for k in range(N_FUSED):
+        by_rank = []
+        for res in spmd:
+            calls = res[name]["fused"]["routing"]
+            n = len(calls) // N_FUSED
+            assert len(calls) == N_FUSED * n
+            by_rank.append(_port_decisions(res[name], name,
+                                           calls[k * n:(k + 1) * n]))
+        _assert_decisions_equal(by_rank, want["fused_decisions"][k])
+    for res in spmd:
+        got = res[name]["fused"]
+        assert got["kind"] == "FusedTrainStep"
+        assert got["step"] == step == N_FUSED
+        np.testing.assert_allclose(got["loss"], loss, atol=N_FUSED * 1e-5)
+    got = spmd[0][name]["fused"]
+    lr = ttrain.make_optimizer().lr
+    near_zero = [np.min([np.abs(g) for g in gs], axis=0) < 1e-6 for gs in
+                 zip(*(_leaves(g) for g in want["fused_grads"]))]
+    for x, y, z in zip(_leaves(got["params"]), _leaves(params), near_zero,
+                       strict=True):
+        atol = np.where(z, N_FUSED * 2 * lr, N_FUSED * 3e-5)
+        assert (np.abs(x - y) <= atol).all(), np.abs(x - y).max()
+    for mine, theirs in ((got["mu"], mu), (got["nu"], nu)):
+        _assert_trees_close(mine, theirs, N_FUSED * 1e-5)
 
 
 def _layer0(tree, name):
@@ -616,3 +759,16 @@ def test_cli_trains_mixtral_over_ep_as_one_process(spmd):
         assert [s for s, _ in got] == [s for s, _ in one] == [1, 2, 3]
         np.testing.assert_allclose([v for _, v in got], [v for _, v in one],
                                    atol=1e-5)
+
+
+def test_cli_fuse_steps_trains_mixtral_over_ep(spmd):
+    """``--model mixtral --ep 2 --fuse-steps 3`` in the group of four: one
+    call of three steps, whose loss every rank logs at step 3, that of
+    the unfused run in the same group."""
+    for res in spmd:
+        fused, eager = res["cli_fused"], res["cli"]
+        assert fused["kind"] == "FusedTrainStep"
+        assert fused["mesh"] == eager["mesh"]
+        assert [s for s, _ in fused["losses"]] == [3]
+        np.testing.assert_allclose(fused["losses"][0][1],
+                                   dict(eager["losses"])[3], atol=1e-6)

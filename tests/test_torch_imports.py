@@ -67,11 +67,13 @@ def test_importing_every_module_loads_no_jax_or_nanotpu():
     assert {"nanotpu_torch.serving.graphs",
             "nanotpu_torch.serving.bench"} <= loaded
     assert {"nanotpu_torch.parallel.infer",
-            "nanotpu_torch.parallel.pipeline"} <= loaded
+            "nanotpu_torch.parallel.pipeline",
+            "nanotpu_torch.agent.discovery"} <= loaded
     assert {p.name for p in PORT_FILES} >= {"quant.py", "speculative.py",
                                             "distill.py", "graphs.py",
                                             "bench.py", "mixtral.py",
-                                            "infer.py", "pipeline.py"}
+                                            "infer.py", "pipeline.py",
+                                            "discovery.py"}
 
 
 def test_entry_points_raise_without_a_card_or_an_explicit_cpu():

@@ -1,6 +1,9 @@
 """nanotpu_torch's mesh module against nanotpu's: the spec trees, the
-checks and their messages, and DTensor placements from specs."""
+checks and their messages, DTensor placements from specs, and
+``make_hybrid_mesh`` over a group of one (its cases over four processes
+are in ``tests/test_torch_ring.py``)."""
 
+import contextlib
 import types
 
 import jax
@@ -151,3 +154,47 @@ def test_make_mesh_over_a_group_of_one(tmp_path):
         assert torch.equal(shards.tp_out(x), x)
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _group_of_one(where):
+    dist.init_process_group("gloo", init_method=f"file://{where}/rdv",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_hybrid_mesh_over_one_process_is_the_plain_mesh(tmp_path,
+                                                        monkeypatch):
+    """One process is one slice: ``dcn_dp`` 0 (found) or 1 (given) gives
+    ``make_mesh``'s mesh, as nanotpu's one-slice fallback does."""
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="joined process group"):
+        tmesh.make_hybrid_mesh()
+    with _group_of_one(tmp_path):
+        plain = tmesh.make_mesh()
+        for dcn_dp in (0, 1):
+            mesh = tmesh.make_hybrid_mesh(dcn_dp=dcn_dp)
+            assert mesh.mesh_dim_names == plain.mesh_dim_names
+            assert torch.equal(mesh.mesh, plain.mesh)
+            assert mesh.device_type == "cpu"
+
+
+def test_hybrid_mesh_mismatch_message_is_nanotpus(tmp_path):
+    with pytest.raises(ValueError) as want:
+        jmesh.make_hybrid_mesh(dcn_dp=2, devices=jax.devices()[:1])
+    with _group_of_one(tmp_path), pytest.raises(ValueError) as got:
+        tmesh.make_hybrid_mesh(dcn_dp=2)
+    assert str(got.value) == str(want.value)
+
+
+def test_default_slice_is_the_host(tmp_path, monkeypatch):
+    """A rank's slice is its host: ``rank // LOCAL_WORLD_SIZE`` when
+    torchrun sets it; a gloo group without it is one host."""
+    with _group_of_one(tmp_path):
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+        assert [tmesh.host_of_rank()(r) for r in range(4)] == [0, 0, 0, 0]
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+        assert [tmesh.host_of_rank()(r) for r in range(4)] == [0, 0, 1, 1]

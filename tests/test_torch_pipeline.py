@@ -9,13 +9,19 @@ their inputs (numpy, made here from a seed) from a pickle and write rank
 0's results to another. This process runs nanotpu's ``pipelined_forward``,
 the gradient of its pipelined loss and its sharded train step on meshes of
 the same shapes; two trainer processes run ``--pp 2 --microbatches 4``.
+The same groups run three pipelined steps in one call
+(``build_train_step(..., mesh=, n_fused=3)``, M=4) on every mesh,
+against nanotpu's ``n_fused=3`` on the same mesh, computed here while the
+groups run.
 
 Tolerances, f32: logits 1e-5 (the stages sum nothing in another order but
 the tp split's halves), gradients 1e-4, as nanotpu's own tests hold its
 pipeline against its plain model. One train step as
 ``tests/test_torch_ring.py`` holds it: loss 1e-5, Adam moments 1e-6,
 updated parameters 3e-5. The ring's logits 2e-4, as nanotpu holds its
-pipelined ring against the dense forward."""
+pipelined ring against the dense forward. Three fused steps: the train
+step's tolerances widened by the step count, three times (loss 3e-5,
+moments 3e-6, parameters 9e-5)."""
 
 import dataclasses
 import os
@@ -65,6 +71,8 @@ MESHES = {
 }
 WORLDS = {2: ["pp2"], 4: ["pp2_tp2", "pp2_fsdp2", "pp2_sp2"]}
 GRAD_MICRO = {"pp2": 4, "pp2_fsdp2": 4, "pp2_sp2": 2}
+#: fused pipelined steps: steps a call, microbatches
+N_FUSED, FUSED_MICRO = 3, 4
 
 CHILD = r"""
 import pickle, sys
@@ -134,6 +142,25 @@ for name in inp["worlds"][world]:
             "mu": map_tree(whole, state.opt_state["mu"]),
             "nu": map_tree(whole, state.opt_state["nu"])}
 
+    # n_fused pipelined steps in one call from the same state (fresh
+    # tensors: a replicated DTensor shares its input's, which the train
+    # step above updated in place)
+    stacked = tpp.stack_layers(params_from_numpy(inp["params"], "cpu"))
+    opt = ttrain.make_optimizer()
+    state = ttrain.place_state(
+        ttrain.TrainState(stacked, opt.init(stacked), 0), cfg, mesh,
+        param_specs=specs)
+    step = ttrain.build_train_step(
+        cfg, opt, loss_fn=tpp.make_pipelined_loss(mesh, inp["fused_micro"]),
+        mesh=mesh, param_specs=specs, n_fused=inp["n_fused"])
+    state, loss = step(state, torch.from_numpy(
+        inp["fused_sp" if attn == "ring" else "fused"]))
+    out[("fused", name)] = {
+        "loss": loss.item(), "step": state.step, "kind": type(step).__name__,
+        "params": map_tree(whole, state.params),
+        "mu": map_tree(whole, state.opt_state["mu"]),
+        "nu": map_tree(whole, state.opt_state["nu"])}
+
 if rank == 0:
     with open(f"{where}/out{world}.pkl", "wb") as f:
         pickle.dump(out, f)
@@ -163,14 +190,43 @@ def inputs(params):
 
     return {"params": params, "tokens": toks(8, 16), "train": toks(8, 17),
             "tokens_sp": toks(4, 32), "train_sp": toks(4, 33),
+            "fused": toks(N_FUSED, 8, 17), "fused_sp": toks(N_FUSED, 4, 33),
             "cfg": {f.name: getattr(CFG, f.name)
                     for f in dataclasses.fields(CFG)},
-            "meshes": MESHES, "worlds": WORLDS, "grad_micro": GRAD_MICRO}
+            "meshes": MESHES, "worlds": WORLDS, "grad_micro": GRAD_MICRO,
+            "n_fused": N_FUSED, "fused_micro": FUSED_MICRO}
+
+
+def nanotpu_fused(inputs, params):
+    """nanotpu's ``n_fused`` pipelined steps on each mesh from the same
+    state: (last loss, step, parameters, mu, nu) as numpy."""
+    out = {}
+    for name in MESHES:
+        placed, mesh = _jplaced(params, name)
+        specs = jpp.llama_pp_param_specs(CFG)
+        opt = jtrain.make_optimizer()
+        state = jtrain.place_state(
+            jtrain.TrainState(placed, opt.init(placed),
+                              jnp.zeros((), jnp.int32)),
+            CFG, mesh, param_specs=specs)
+        step = jtrain.build_train_step(
+            _jcfg(name), mesh, opt,
+            loss_fn=jpp.make_pipelined_loss(mesh, n_micro=FUSED_MICRO),
+            param_specs=specs, n_fused=N_FUSED)
+        tokens = inputs["fused_sp" if MESHES[name][1] == "ring" else "fused"]
+        state, loss = step(state, jnp.asarray(tokens))
+        adam = state.opt_state[1][0]
+        out[name] = jax.tree_util.tree_map(
+            np.asarray, (float(loss), int(state.step), state.params, adam.mu,
+                         adam.nu))
+    return out
 
 
 @pytest.fixture(scope="module")
-def spmd(inputs, tmp_path_factory):
-    """Both process groups, started together; rank 0's results of each."""
+def run(inputs, params, tmp_path_factory):
+    """Both process groups, started together, and nanotpu's fused steps,
+    computed while they run: (rank 0's results of each group, nanotpu's
+    fused steps by mesh)."""
     where = tmp_path_factory.mktemp("pipeline")
     with open(where / "in.pkl", "wb") as f:
         pickle.dump(inputs, f)
@@ -181,6 +237,7 @@ def spmd(inputs, tmp_path_factory):
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for w in WORLDS for r in range(w)]
     try:
+        theirs = nanotpu_fused(inputs, params)
         for p in procs:
             _, err = p.communicate(timeout=240)
             assert p.returncode == 0, err[-4000:]
@@ -191,7 +248,12 @@ def spmd(inputs, tmp_path_factory):
     for w in WORLDS:
         with open(where / f"out{w}.pkl", "rb") as f:
             out.update(pickle.load(f))
-    return out
+    return out, theirs
+
+
+@pytest.fixture(scope="module")
+def spmd(run):
+    return run[0]
 
 
 def _jmesh(name):
@@ -312,6 +374,26 @@ def test_train_step_matches_nanotpu_on_the_same_mesh(spmd, inputs, params,
         assert len(a) == len(b)
         for x, y in zip(a, b):
             np.testing.assert_allclose(x, np.asarray(y), atol=atol)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_fused_pipelined_steps_match_nanotpu_on_the_same_mesh(run, name):
+    """Three pipelined steps in one call (M=4): the last loss, the step
+    count, the updated parameters and Adam's moments against nanotpu's
+    ``n_fused=3`` on the same mesh (each tolerance thrice one step's)."""
+    got = run[0][("fused", name)]
+    loss, step, params, mu, nu = run[1][name]
+    assert got["kind"] == "FusedTrainStep"
+    assert got["step"] == step == N_FUSED
+    np.testing.assert_allclose(got["loss"], loss, atol=N_FUSED * 1e-5)
+    for mine, theirs, atol in ((got["params"], params, N_FUSED * 3e-5),
+                               (got["mu"], mu, N_FUSED * 1e-6),
+                               (got["nu"], nu, N_FUSED * 1e-6)):
+        a = jax.tree_util.tree_leaves(mine)
+        b = jax.tree_util.tree_leaves(theirs)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x, y, atol=atol)
 
 
 def test_stack_unstack_round_trip(params):

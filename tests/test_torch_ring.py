@@ -9,11 +9,27 @@ made here from a seed) from a pickle and write rank 0's results to
 another. This process runs nanotpu's ``ring_attention_sharded`` and
 ``build_train_step`` on meshes of the same shapes.
 
+The same groups run ``build_train_step(..., mesh=, n_fused=3)`` on the
+five meshes from the same state (three steps in one call, nanotpu's
+``n_fused=3`` the reference), the trainer's CLI at ``--dp 2
+--fuse-steps 2`` beside the unfused run (two processes), and
+``make_hybrid_mesh`` (four): ``tests/test_hybrid_mesh.py``'s cases on one
+slice (a gloo group with no ``LOCAL_WORLD_SIZE`` is one host), the
+layout over two interleaved synthetic slices (rank % 2) and the dry run's
+``dcn_dp=2, fsdp=2`` step (``__graft_entry__.py:311-335``, slices the
+contiguous halves) against nanotpu's ``make_hybrid_mesh`` step on four
+virtual devices. nanotpu's involuntary-remat check of that step is a
+warning of XLA's partitioner, which the port does not have: no
+counterpart.
+
 Tolerances, f32: ring output 1e-5 and gradients 1e-4, against nanotpu and
 against the whole-sequence plain attention (``attention_lse_ref``; the
 ring merges per-block softmaxes in another order). One train step as
 ``tests/test_torch_train.py`` holds it: loss 1e-5, Adam moments 1e-6,
-updated parameters 3e-5 (a tenth of one Adam step)."""
+updated parameters 3e-5 (a tenth of one Adam step). Three fused steps:
+each of those widened by the step count, three times (loss 3e-5, moments
+3e-6, parameters 9e-5); the CLI's fused and unfused losses are the same
+computation, to 1e-6."""
 
 import dataclasses
 import os
@@ -30,6 +46,7 @@ import torch
 
 from nanotpu.models import llama as jl
 from nanotpu.parallel import train as jtrain
+from nanotpu.parallel.mesh import make_hybrid_mesh as jmake_hybrid_mesh
 from nanotpu.parallel.mesh import make_mesh as jmake_mesh
 from nanotpu.parallel.ring_attention import ring_attention_sharded as jring
 from nanotpu_torch.ops.attention import attention_lse_ref
@@ -52,6 +69,15 @@ MESHES = {"dp2": (dict(dp=2), "dense"),
           "tp2_sp2": (dict(tp=2, sp=2), "ring"),
           "sp4": (dict(sp=4), "ring")}
 WORLDS = {2: ["dp2"], 4: ["fsdp2_tp2", "dp2_sp2", "tp2_sp2", "sp4"]}
+N_FUSED = 3
+#: the dry run's config (``__graft_entry__.py:95-98``) for its hybrid step
+HYBRID_CFG = jl.LlamaConfig(
+    vocab_size=512, dim=128, n_layers=2, n_heads=8, n_kv_heads=4,
+    ffn_dim=256, max_seq_len=128, dtype="float32",
+)
+#: the trainer's CLI in the group of two, unfused and at --fuse-steps 2
+CLI_ARGV = ["--device", "cpu", "--steps", "4", "--batch", "4", "--seq", "33",
+            "--data", "markov", "--dp", "2"]
 
 CHILD = r"""
 import pickle, sys
@@ -114,6 +140,69 @@ for name in inp["worlds"][world]:
         "count": int(state.opt_state["count"].full_tensor()),
         "placements": str(state.params["layers"][0]["attn"]["wq"].placements)}
 
+    # n_fused steps in one call from the same state
+    params = params_from_numpy(inp["params"], "cpu")
+    state = ttrain.place_state(ttrain.TrainState(params, opt.init(params), 0),
+                               cfg, mesh)
+    step = ttrain.build_train_step(cfg, opt, mesh=mesh,
+                                   n_fused=inp["n_fused"])
+    state, loss = step(state, torch.from_numpy(inp["fused_tokens"]))
+    out[("fused", name)] = {
+        "loss": loss.item(), "step": state.step,
+        "kind": type(step).__name__,
+        "params": map_tree(whole, state.params),
+        "mu": map_tree(whole, state.opt_state["mu"]),
+        "nu": map_tree(whole, state.opt_state["nu"]),
+        "count": int(state.opt_state["count"].full_tensor())}
+
+if world == 2:
+    out["cli"] = {fuse: ttrain.run(inp["cli_argv"]
+                                   + ["--fuse-steps", str(fuse)])["losses"]
+                  for fuse in (1, 2)}
+
+if world == 4:
+    hybrid = {}
+    plain = tm.make_mesh(fsdp=2, tp=2)
+    mesh = tm.make_hybrid_mesh(fsdp=2, tp=2)
+    hybrid["fallback"] = (mesh.mesh.tolist(), plain.mesh.tolist(),
+                          mesh.mesh_dim_names)
+    hybrid["dcn_dp_1"] = tm.axis_sizes(tm.make_hybrid_mesh(dcn_dp=1, dp=2,
+                                                           ep=2))
+    try:
+        tm.make_hybrid_mesh(dcn_dp=2, fsdp=2, tp=2)
+    except ValueError as e:
+        hybrid["mismatch"] = str(e)
+    try:
+        tm.make_hybrid_mesh(dcn_dp=2, fsdp=2, slice_of=lambda r: int(r >= 3))
+    except ValueError as e:
+        hybrid["uneven"] = str(e)
+    for inner in ("fsdp", "tp"):
+        mesh = tm.make_hybrid_mesh(dcn_dp=2, slice_of=lambda r: r % 2,
+                                   **{inner: 2})
+        mine = {a: dist.get_process_group_ranks(mesh.get_group(a))
+                for a in ("dp", inner)}
+        groups = [None] * world
+        dist.all_gather_object(groups, mine)
+        hybrid[("layout", inner)] = {"mesh": mesh.mesh.tolist(),
+                                     "sizes": tm.axis_sizes(mesh),
+                                     "groups": groups}
+    cfg = tl.LlamaConfig(**inp["hybrid_cfg"])
+    for label, mesh in (
+            ("dcn", tm.make_hybrid_mesh(dcn_dp=2, fsdp=2,
+                                        slice_of=lambda r: int(r >= 2))),
+            ("fallback", tm.make_hybrid_mesh(dp=2, fsdp=2))):
+        opt = ttrain.make_optimizer()
+        params = params_from_numpy(inp["hybrid_params"], "cpu")
+        state = ttrain.place_state(
+            ttrain.TrainState(params, opt.init(params), 0), cfg, mesh)
+        state, loss = ttrain.build_train_step(cfg, opt, mesh=mesh)(
+            state, torch.from_numpy(inp["hybrid_tokens"]))
+        whole = lambda t: t.full_tensor().detach().numpy()
+        hybrid[("step", label)] = {
+            "loss": loss.item(), "params": map_tree(whole, state.params),
+            "sizes": tm.axis_sizes(mesh), "mesh": mesh.mesh.tolist()}
+    out["hybrid"] = hybrid
+
 if rank == 0:
     with open(f"{where}/out{world}.pkl", "wb") as f:
         pickle.dump(out, f)
@@ -132,28 +221,82 @@ def inputs(jax_params):
     q, dout = (rng.standard_normal((B, S, H, D), np.float32) for _ in range(2))
     k, v = (rng.standard_normal((B, S, KV, D), np.float32) for _ in range(2))
     tokens = rng.integers(0, CFG.vocab_size, (4, 33)).astype(np.int32)
+    fused = rng.integers(0, CFG.vocab_size, (N_FUSED, 4, 33)).astype(np.int32)
+    hybrid_tokens = rng.integers(0, HYBRID_CFG.vocab_size,
+                                 (4, 64)).astype(np.int32)
+    hybrid_params = jax.jit(jl.init_params, static_argnums=1)(
+        jax.random.PRNGKey(10), HYBRID_CFG)
     return {"q": q, "k": k, "v": v, "dout": dout, "tokens": tokens,
             "params": jax.tree_util.tree_map(np.asarray, jax_params),
-            "cfg": {f.name: getattr(CFG, f.name)
-                    for f in dataclasses.fields(CFG)},
-            "ring_cases": RING_CASES, "meshes": MESHES, "worlds": WORLDS}
+            "cfg": _fields(CFG), "ring_cases": RING_CASES, "meshes": MESHES,
+            "worlds": WORLDS, "n_fused": N_FUSED, "fused_tokens": fused,
+            "cli_argv": CLI_ARGV, "hybrid_cfg": _fields(HYBRID_CFG),
+            "hybrid_tokens": hybrid_tokens,
+            "hybrid_params": jax.tree_util.tree_map(np.asarray,
+                                                    hybrid_params)}
+
+
+def _fields(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _jax_state(params, cfg, mesh):
+    opt = jtrain.make_optimizer()
+    state = jtrain.TrainState(params, opt.init(params),
+                              jnp.zeros((), jnp.int32))
+    return jtrain.place_state(state, cfg, mesh), opt
+
+
+def nanotpu_results(inputs, jax_params):
+    """nanotpu's ``n_fused`` steps on each mesh and its hybrid dry-run
+    step, as numpy."""
+    out = {}
+    for name, (factors, attn) in MESHES.items():
+        cfg = dataclasses.replace(CFG, attn_impl=attn)
+        n = int(np.prod(list(factors.values())))
+        mesh = jmake_mesh(devices=jax.devices()[:n], **factors)
+        state, opt = _jax_state(jax_params, cfg, mesh)
+        state, loss = jtrain.build_train_step(cfg, mesh, opt,
+                                              n_fused=N_FUSED)(
+            state, jnp.asarray(inputs["fused_tokens"]))
+        out[("fused", name)] = jax.tree_util.tree_map(
+            np.asarray, (float(loss), int(state.step), state.params,
+                         state.opt_state[1][0].mu, state.opt_state[1][0].nu))
+    devices = jax.devices()[:4]
+    mesh = jmake_hybrid_mesh(
+        dcn_dp=2, dp=1, fsdp=2, tp=1, devices=devices,
+        slice_of=lambda d: 0 if devices.index(d) < 2 else 1)
+    state, opt = _jax_state(jax.tree_util.tree_map(
+        jnp.asarray, inputs["hybrid_params"]), HYBRID_CFG, mesh)
+    state, loss = jtrain.build_train_step(HYBRID_CFG, mesh, opt)(
+        state, jnp.asarray(inputs["hybrid_tokens"]))
+    out["hybrid"] = {"loss": float(loss), "shape": dict(mesh.shape),
+                     "params": jax.tree_util.tree_map(np.asarray,
+                                                      state.params)}
+    return out
 
 
 @pytest.fixture(scope="module")
-def spmd(inputs, tmp_path_factory):
-    """Both process groups, started together; rank 0's results of each."""
+def run(inputs, jax_params, tmp_path_factory):
+    """Both process groups, started together, and nanotpu's fused and
+    hybrid results, computed while they run: (rank 0's results of each
+    group, nanotpu's)."""
     where = tmp_path_factory.mktemp("spmd")
     with open(where / "in.pkl", "wb") as f:
         pickle.dump(inputs, f)
     (where / "child.py").write_text(CHILD)
-    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("NANOTPU_", "JOB_", "GANG_", "COORDINATOR_",
+                                "LOCAL_WORLD_SIZE"))}
+    env.update({"PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"})
     procs = [subprocess.Popen(
         [sys.executable, str(where / "child.py"), str(r), str(w), str(where)],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for w in WORLDS for r in range(w)]
     try:
+        theirs = nanotpu_results(inputs, jax_params)
         for p in procs:
-            _, err = p.communicate(timeout=180)
+            _, err = p.communicate(timeout=240)
             assert p.returncode == 0, err[-4000:]
     finally:
         for p in procs:
@@ -162,7 +305,17 @@ def spmd(inputs, tmp_path_factory):
     for w in WORLDS:
         with open(where / f"out{w}.pkl", "rb") as f:
             out.update(pickle.load(f))
-    return out
+    return out, theirs
+
+
+@pytest.fixture(scope="module")
+def spmd(run):
+    return run[0]
+
+
+@pytest.fixture(scope="module")
+def nanotpu(run):
+    return run[1]
 
 
 @pytest.fixture(scope="module")
@@ -247,3 +400,98 @@ def test_train_step_matches_nanotpu_on_the_same_mesh(spmd, inputs, jax_params,
         want[("dp", "pp", "fsdp", "tp", "sp", "ep").index(axis)] = \
             f"Shard(dim={dim})"
     assert got["placements"] == "(" + ", ".join(want) + ")"
+
+
+def _assert_leaves_close(mine, theirs, atol):
+    a = jax.tree_util.tree_leaves(mine)
+    b = jax.tree_util.tree_leaves(theirs)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x, np.asarray(y), atol=atol)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_fused_steps_match_nanotpu_on_the_same_mesh(spmd, nanotpu, name):
+    """``build_train_step(..., mesh=, n_fused=3)``: one call of three
+    steps, the last loss, the step count and the state against nanotpu's
+    ``n_fused=3`` scan on the same mesh (each tolerance thrice one
+    step's)."""
+    got = spmd[("fused", name)]
+    loss, step, params, mu, nu = nanotpu[("fused", name)]
+    assert got["kind"] == "FusedTrainStep"
+    assert got["step"] == step == got["count"] == N_FUSED
+    np.testing.assert_allclose(got["loss"], loss, atol=N_FUSED * 1e-5)
+    _assert_leaves_close(got["params"], params, N_FUSED * 3e-5)
+    _assert_leaves_close(got["mu"], mu, N_FUSED * 1e-6)
+    _assert_leaves_close(got["nu"], nu, N_FUSED * 1e-6)
+
+
+def test_cli_fuse_steps_on_a_mesh_logs_the_unfused_losses(spmd):
+    """``--dp 2 --fuse-steps 2`` in the group of two logs, at each call's
+    last step, the losses of the unfused run on the same batches."""
+    eager, fused = spmd["cli"][1], spmd["cli"][2]
+    assert [s for s, _ in eager] == [1, 2, 3, 4]
+    assert [s for s, _ in fused] == [2, 4]
+    want = dict(eager)
+    np.testing.assert_allclose([v for _, v in fused],
+                               [want[s] for s, _ in fused], atol=1e-6)
+    assert fused[-1][1] < eager[0][1]
+
+
+def test_hybrid_mesh_on_one_slice_is_the_plain_mesh(spmd):
+    """A gloo group without LOCAL_WORLD_SIZE is one host: ``dcn_dp=0``
+    finds one slice and returns ``make_mesh``'s mesh."""
+    got, plain, names = spmd["hybrid"]["fallback"]
+    assert got == plain and names == ("dp", "pp", "fsdp", "tp", "sp", "ep")
+
+
+def test_hybrid_mesh_explicit_dcn_dp_1_is_plain(spmd):
+    assert spmd["hybrid"]["dcn_dp_1"] == {"dp": 2, "pp": 1, "fsdp": 1,
+                                          "tp": 1, "sp": 1, "ep": 2}
+
+
+def test_hybrid_mesh_refuses_a_dcn_dp_the_slices_contradict(spmd):
+    with pytest.raises(ValueError) as want:
+        jmake_hybrid_mesh(dcn_dp=2, dp=1, fsdp=2, tp=2,
+                          devices=jax.devices()[:4])
+    assert spmd["hybrid"]["mismatch"] == str(want.value)
+    assert "span 1 slice" in str(want.value)
+
+
+def test_hybrid_mesh_refuses_slices_of_another_size(spmd):
+    """Slices of 3 and 1 ranks cannot each hold a dp=1 x fsdp=2 block:
+    nanotpu's message."""
+    devices = jax.devices()[:4]
+    with pytest.raises(ValueError) as want:
+        jmake_hybrid_mesh(dcn_dp=2, fsdp=2, devices=devices,
+                          slice_of=lambda d: int(devices.index(d) >= 3))
+    assert spmd["hybrid"]["uneven"] == str(want.value)
+
+
+@pytest.mark.parametrize("inner", ["fsdp", "tp"])
+def test_hybrid_mesh_keeps_inner_axes_inside_a_slice(spmd, inner):
+    """Two interleaved synthetic slices (rank % 2): dp is dcn_dp and
+    crosses them, every ``inner`` group lies inside one, on every rank;
+    the rank layout is nanotpu's reshape of the slices in order."""
+    got = spmd["hybrid"][("layout", inner)]
+    assert got["sizes"]["dp"] == 2 and got["sizes"][inner] == 2
+    arr = np.array(got["mesh"])
+    assert arr.reshape(2, 2).tolist() == [[0, 2], [1, 3]]
+    for groups in got["groups"]:
+        assert len({r % 2 for r in groups[inner]}) == 1
+        assert {r % 2 for r in groups["dp"]} == {0, 1}
+    assert sorted(map(tuple, (g[inner] for g in got["groups"]))) == \
+        [(0, 2), (0, 2), (1, 3), (1, 3)]
+
+
+@pytest.mark.parametrize("label", ["dcn", "fallback"])
+def test_hybrid_dry_run_step_matches_nanotpu(spmd, nanotpu, label):
+    """The dry run's step on ``dcn_dp=2, fsdp=2`` (slices the contiguous
+    halves) and on the one-slice fallback mesh (dp2 x fsdp2): the loss
+    and the updated parameters of nanotpu's ``make_hybrid_mesh`` step on
+    four virtual devices."""
+    got, want = spmd["hybrid"][("step", label)], nanotpu["hybrid"]
+    assert got["sizes"] == {**want["shape"], "dp": 2}
+    assert np.array(got["mesh"]).reshape(-1).tolist() == [0, 1, 2, 3]
+    np.testing.assert_allclose(got["loss"], want["loss"], atol=1e-5)
+    _assert_leaves_close(got["params"], want["params"], 3e-5)

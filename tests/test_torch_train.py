@@ -269,16 +269,16 @@ def test_cli_refuses_what_is_not_ported(argv, want, capsys):
     (2, ["--tp", "3"], "fsdp*tp*ep*sp*pp=3 does not divide 2 devices"),
     (3, ["--model", "mixtral", "--ep", "3"],
      "indivisible sharding: n_experts 4 % ep 3"),
-    (2, ["--steps", "4", "--fuse-steps", "2"],
-     "--fuse-steps > 1 on a mesh of more than one"),
+    (2, ["--steps", "3", "--fuse-steps", "2"],
+     "--steps 3 must be a multiple of --fuse-steps 2"),
 ])
 def test_cli_refuses_on_a_mesh_what_is_not_ported(monkeypatch, capsys, world,
                                                   argv, want):
-    """What the port's mesh does not take yet (fused steps), and nanotpu's
-    own checks (an ep that does not divide the world or the experts),
-    refused before a mesh is made (a joined group of ``world`` processes is
-    only pretended here). ``--model mixtral --ep 2`` trains:
-    ``tests/test_torch_ep.py``."""
+    """nanotpu's own checks (an ep that does not divide the world or the
+    experts), and fused calls that do not divide the steps, refused before
+    a mesh is made (a joined group of ``world`` processes is only pretended
+    here). ``--model mixtral --ep 2`` trains: ``tests/test_torch_ep.py``;
+    ``--fuse-steps`` on a mesh: ``tests/test_torch_ring.py``."""
     monkeypatch.setattr(ttrain.dist, "is_initialized", lambda: world > 1)
     monkeypatch.setattr(ttrain.dist, "get_world_size", lambda: world)
     with pytest.raises(SystemExit):
@@ -287,16 +287,18 @@ def test_cli_refuses_on_a_mesh_what_is_not_ported(monkeypatch, capsys, world,
 
 
 def test_mesh_step_refuses_fused_steps_and_other_losses():
-    """Fused steps on a mesh are refused, and a loss that does not run on a
-    mesh's shards; Mixtral's loss is taken (its mesh step:
-    ``tests/test_torch_ep.py``)."""
+    """On a mesh, fewer than one fused step is refused, and a loss that
+    does not run on a mesh's shards, fused or not; Mixtral's loss is taken
+    (its mesh step: ``tests/test_torch_ep.py``; fused mesh steps:
+    ``tests/test_torch_ring.py``)."""
     cfg, opt = tl.LlamaConfig.tiny(), ttrain.make_optimizer()
-    with pytest.raises(ValueError, match="fused steps on a mesh"):
-        ttrain.build_train_step(cfg, opt, n_fused=2, mesh=object())
-    with pytest.raises(ValueError, match="Llama or Mixtral loss, or a "
-                                         "pipelined one"):
-        ttrain.build_train_step(cfg, opt, loss_fn=lambda *a: None,
-                                mesh=object())
+    with pytest.raises(ValueError, match="n_fused must be at least 1"):
+        ttrain.build_train_step(cfg, opt, n_fused=0, mesh=object())
+    for n_fused in (1, 2):
+        with pytest.raises(ValueError, match="Llama or Mixtral loss, or a "
+                                             "pipelined one"):
+            ttrain.build_train_step(cfg, opt, loss_fn=lambda *a: None,
+                                    n_fused=n_fused, mesh=object())
 
 
 def test_ring_attention_needs_a_mesh():
