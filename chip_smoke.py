@@ -73,9 +73,6 @@ them:
    engines, whose greedy tokens the graphed ones must equal; then ``python
    -m nanotpu_torch.models.distill`` runs briefly and its JSON line must
    parse;
-8a. bench phase: ``python -m nanotpu_torch.serving.bench`` (bf16, then
-   ``--int8 --kv-int8``) at its defaults, as subprocesses; each JSON line
-   must carry nanotpu's bench keys and is printed;
 9. training phase: the trainer's CLI entry (``nanotpu_torch.parallel.train``)
    on the training flagship (vocab 32768, dim 1024, 8 layers, 16/4 heads,
    bf16, ``--attn flash --seq 2049 --batch 8 --data markov --steps 10``):
@@ -259,11 +256,6 @@ PROMPT_LENS = (5, 100, 600, 1500)
 #: the graphs phase's decode drive: SLOTS prompts of 64 tokens, this many
 #: new tokens each (the profiled round takes 64)
 GRAPH_NEW = 256
-#: the keys of nanotpu's serving bench line (nanotpu/serving/bench.py:66-80)
-BENCH_KEYS = {"preset", "int8", "kv_int8", "slots", "requests",
-              "max_new_tokens", "prompt_lengths", "wall_s",
-              "decode_tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
-              "latency_p50_ms", "latency_p99_ms"}
 
 
 def card_line() -> str:
@@ -998,29 +990,6 @@ def graphs_phase(card: str) -> dict:
         raise AssertionError(f"graphs path launches {launches} for "
                              f"{admissions} prefills")
     out["launches"] = launches
-    return out
-
-
-def bench_phase(card: str) -> dict:
-    """``python -m nanotpu_torch.serving.bench`` at its defaults, bf16
-    and then ``--int8 --kv-int8``: each must exit 0 with one JSON line of
-    nanotpu's bench keys as its last line, which is printed."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    out = {}
-    for flags in ([], ["--int8", "--kv-int8"]):
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "nanotpu_torch.serving.bench", *flags],
-            cwd=here, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise AssertionError(f"bench {flags} failed: {res.stderr[-2000:]}")
-        line = res.stdout.strip().splitlines()[-1]
-        got = json.loads(line)
-        if set(got) != BENCH_KEYS:
-            raise AssertionError(f"bench {flags} keys {sorted(got)}")
-        print(f"bench {' '.join(flags) or '(bf16)'} on {card} in "
-              f"{time.perf_counter() - t0:.1f} s:\n{line}")
-        out[" ".join(flags) or "bf16"] = got
     return out
 
 
@@ -3861,7 +3830,6 @@ def main() -> None:
     timed(server_cli_phase, card)
     spec = timed(speculative_phase, card)
     timed(distill_cli_phase, card)
-    timed(bench_phase, card)
     trained = timed(training_phase, card)
     two_pass = timed(two_pass_phase)
     fused = timed(fused_training_phase, card)

@@ -11,7 +11,11 @@ One step a call runs eagerly. ``n_fused`` steps a call (``--fuse-steps``,
 nanotpu's ``lax.scan`` over a token block) replay one step captured as a
 CUDA graph on a card (:class:`GraphedTrainStep`), and run the same body
 eagerly on the CPU. ``--profile-dir`` traces the steady-state calls with
-``torch.profiler``.
+``torch.profiler``. An eager step is a ``train.step`` span
+(:mod:`nanotpu_torch.metrics.spans`) over ``train.forward`` (the loss),
+``train.backward`` (the gradients, summed over a mesh) and
+``train.optimizer`` (clipping and AdamW); a replayed graph is one
+``train.step`` with nothing inside.
 
 On a mesh (``build_train_step(..., mesh=...)``; the CLI's ``--dp --fsdp
 --tp --sp --ep --pp`` in a job of several processes, :mod:`.distributed`)
@@ -50,6 +54,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from nanotpu_torch import resolve_device
+from nanotpu_torch.metrics import spans
 from nanotpu_torch.models import llama, mixtral
 from nanotpu_torch.ops import attention
 from nanotpu_torch.parallel import distributed, pipeline
@@ -202,14 +207,18 @@ def build_train_step(
         loss_fn = loss_fn or llama.loss_fn
 
         def body(params, opt_state, tokens: torch.Tensor) -> torch.Tensor:
-            ps = leaves(params)
-            for p in ps:
-                if not p.requires_grad:
-                    p.requires_grad_(True)
-            loss = loss_fn(params, tokens, cfg)
-            grads = torch.autograd.grad(loss, ps)
-            optimizer.update(grads, opt_state, params)
-            return loss.detach()
+            with spans.span("train.step"):
+                ps = leaves(params)
+                for p in ps:
+                    if not p.requires_grad:
+                        p.requires_grad_(True)
+                with spans.span("train.forward"):
+                    loss = loss_fn(params, tokens, cfg)
+                with spans.span("train.backward"):
+                    grads = torch.autograd.grad(loss, ps)
+                with spans.span("train.optimizer"):
+                    optimizer.update(grads, opt_state, params)
+                return loss.detach()
 
     if n_fused > 1:
         return FusedTrainStep(body, n_fused)
@@ -237,15 +246,20 @@ def mesh_train_body(cfg, optimizer: AdamW, mesh, specs,
     shards = Shards(mesh, specs)
 
     def body(params, opt_state, tokens: torch.Tensor) -> torch.Tensor:
-        params, opt_state = local(params), local(opt_state)
-        ps, flat_specs = leaves(params), spec_leaves(specs, params)
-        for p in ps:
-            p.requires_grad_(True)
-        loss = loss_fn(params, shards.rows(tokens), cfg, shard=shards)
-        grads = shards.reduce_grads(torch.autograd.grad(loss, ps), flat_specs)
-        optimizer.update(grads, opt_state, params,
-                         norm=shards.global_norm(grads, flat_specs))
-        return shards.sum_over_data(loss.detach())
+        with spans.span("train.step"):
+            params, opt_state = local(params), local(opt_state)
+            ps, flat_specs = leaves(params), spec_leaves(specs, params)
+            for p in ps:
+                p.requires_grad_(True)
+            with spans.span("train.forward"):
+                loss = loss_fn(params, shards.rows(tokens), cfg, shard=shards)
+            with spans.span("train.backward"):
+                grads = shards.reduce_grads(torch.autograd.grad(loss, ps),
+                                            flat_specs)
+            with spans.span("train.optimizer"):
+                optimizer.update(grads, opt_state, params,
+                                 norm=shards.global_norm(grads, flat_specs))
+            return shards.sum_over_data(loss.detach())
 
     return body
 
@@ -322,7 +336,8 @@ class GraphedTrainStep:
             return
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        with spans.span("train.step"):
+            self.graph.replay()
         self.replays += 1
         for fn, n in zip(_COUNTED, self.launches_per_replay):
             fn.launches += n

@@ -29,6 +29,13 @@ port of ``nanotpu/serving/engine.py``.
   speculative cycle as a CUDA graph at warm-up (:mod:`.graphs`), and a
   chunk replays one a step: the counterpart of the JAX engine's compiled
   chunk. On the CPU the same bodies run eagerly.
+* **Spans** (:mod:`nanotpu_torch.metrics.spans`, recorded only under the
+  profiler or after ``enable()``): ``engine.queue`` (a request's wait from
+  submission to its pop), ``engine.admit`` over ``engine.prefill`` (one a
+  request: true and bucket lengths), ``engine.chunk`` (its kind, units,
+  slots, active rows and the tokens it emitted) and ``engine.sync`` (each
+  fetch of first tokens or of a chunk's tokens); none inside a captured
+  unit.
 
 MoE (a ``MixtralConfig`` engine) routes every decode step, speculative
 draft and verify at **full expert capacity** (C = rows x positions x
@@ -75,6 +82,7 @@ import torch
 import torch.distributed as dist
 
 from nanotpu_torch import resolve_device
+from nanotpu_torch.metrics import spans
 from nanotpu_torch.metrics.stats import percentile
 from nanotpu_torch.models.generate import (
     KVCache,
@@ -473,6 +481,13 @@ def speculative_chunk_cycle(params, draft_params, cfg, dcfg, cache, d_cache,
 
 def _tp(shard) -> int:
     return 1 if shard is None else shard.size["tp"]
+
+
+def _fetch(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``: the host's wait for the device, as an ``engine.sync``
+    span."""
+    with spans.span("engine.sync"):
+        return t.cpu()
 
 
 def prefill_cache_only(params, cfg, prompt_padded, max_len: int,
@@ -1097,60 +1112,74 @@ class Engine:
     def _admit_all(self) -> None:
         """Move queued requests into free slots (rank 0; on a mesh each
         admission is announced first). Prefills are enqueued per request,
-        and their first tokens come back in ONE stacked fetch."""
-        free = [i for i, r in enumerate(self._slot_req) if r is None]
-        with self._cv:
-            reqs = [self._queue.popleft()
-                    for _ in range(min(len(free), len(self._queue)))]
-        # speculative mode reserves K+1 positions for the last cycle's
-        # write overshoot
-        slack = self.draft_tokens + 1 if self.draft_params is not None else 0
-        occupied = self.slots - len(free)
-        admitted = []
-        for j, (req, slot) in enumerate(zip(reqs, free)):
-            S = len(req.prompt)
-            # cap generation to the cache row; the floor of 1 keeps a
-            # near-max_len prompt at one prefill token, no decode steps (a
-            # one-token budget freezes before any speculative cycle writes)
-            req.max_new_tokens = max(1, min(req.max_new_tokens,
-                                            self.max_len - S - slack))
-            # prime the draft row only when the occupancy after this
-            # admission could speculate (the measured policy always may);
-            # otherwise regime entry re-primes it
-            prime = self._d_cache is not None and (
-                self._measured or self._policy_k(occupied + j + 1) > 0)
-            self._announce(_ADMIT, slot, S, _f64_bits(req.temperature),
-                           req.max_new_tokens, int(prime),
-                           int(j == len(reqs) - 1), tokens=req.prompt)
-            admitted.append(self._admit_one(req, slot, prime))
-        self._finish_admissions(admitted)
+        and their first tokens come back in ONE stacked fetch. One
+        ``engine.admit`` span; each request's wait in the queue ends at its
+        pop, an ``engine.queue`` span from its submission."""
+        with spans.span("engine.admit") as admit:
+            free = [i for i, r in enumerate(self._slot_req) if r is None]
+            with self._cv:
+                reqs = [self._queue.popleft()
+                        for _ in range(min(len(free), len(self._queue)))]
+            if admit:
+                popped = time.perf_counter_ns()
+                for req in reqs:
+                    spans.record("engine.queue",
+                                 round(req.submitted_at * 1e9), popped,
+                                 rid=req.id)
+            admit.set(admitted=len(reqs))
+            # speculative mode reserves K+1 positions for the last cycle's
+            # write overshoot
+            slack = (self.draft_tokens + 1 if self.draft_params is not None
+                     else 0)
+            occupied = self.slots - len(free)
+            admitted = []
+            for j, (req, slot) in enumerate(zip(reqs, free)):
+                S = len(req.prompt)
+                # cap generation to the cache row; the floor of 1 keeps a
+                # near-max_len prompt at one prefill token, no decode steps (a
+                # one-token budget freezes before any speculative cycle writes)
+                req.max_new_tokens = max(1, min(req.max_new_tokens,
+                                                self.max_len - S - slack))
+                # prime the draft row only when the occupancy after this
+                # admission could speculate (the measured policy always may);
+                # otherwise regime entry re-primes it
+                prime = self._d_cache is not None and (
+                    self._measured or self._policy_k(occupied + j + 1) > 0)
+                self._announce(_ADMIT, slot, S, _f64_bits(req.temperature),
+                               req.max_new_tokens, int(prime),
+                               int(j == len(reqs) - 1), tokens=req.prompt)
+                admitted.append(self._admit_one(req, slot, prime))
+            self._finish_admissions(admitted)
 
     def _admit_one(self, req: Request, slot: int, prime: bool) -> tuple:
-        """Prefill ``req`` into ``slot`` (and its draft row when ``prime``);
-        returns (req, slot, first token, MoE drops), all on the device."""
-        S = len(req.prompt)
-        padded = np.zeros((1, self._bucket(S)), np.int64)
-        padded[0, :S] = req.prompt
-        padded = torch.from_numpy(padded).to(self.device)
-        out = prefill_request(
-            self.params, self.cfg, padded, S, self.max_len,
-            req.temperature, self._gen, top_k=self.top_k, top_p=self.top_p,
-            count_drops=self._count_drops, shard=self._shard,
-        )
-        first, ks, vs = out[:3]
-        # MoE: the drop count rides the same fetch as the first tokens
-        drops = out[3] if self._count_drops else None
-        insert_request(self._cache, ks, vs, slot, S)
-        if self._d_cache is not None:
-            if prime:
-                dks, dvs = prefill_cache_only(
-                    self.draft_params, self.draft_cfg, padded, self.max_len,
-                    shard=self._dshard)
-                insert_request(self._d_cache, dks, dvs, slot, S)
-                self._draft_stale.discard(slot)
-            else:
-                self._draft_stale.add(slot)
-        return req, slot, first, drops
+        """Prefill ``req`` into ``slot`` (and its draft row when ``prime``)
+        as one ``engine.prefill`` span; returns (req, slot, first token, MoE
+        drops), all on the device."""
+        S, bucket = len(req.prompt), self._bucket(len(req.prompt))
+        with spans.span("engine.prefill", rid=req.id, tokens=S,
+                        bucket=bucket):
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :S] = req.prompt
+            padded = torch.from_numpy(padded).to(self.device)
+            out = prefill_request(
+                self.params, self.cfg, padded, S, self.max_len,
+                req.temperature, self._gen, top_k=self.top_k, top_p=self.top_p,
+                count_drops=self._count_drops, shard=self._shard,
+            )
+            first, ks, vs = out[:3]
+            # MoE: the drop count rides the same fetch as the first tokens
+            drops = out[3] if self._count_drops else None
+            insert_request(self._cache, ks, vs, slot, S)
+            if self._d_cache is not None:
+                if prime:
+                    dks, dvs = prefill_cache_only(
+                        self.draft_params, self.draft_cfg, padded,
+                        self.max_len, shard=self._dshard)
+                    insert_request(self._d_cache, dks, dvs, slot, S)
+                    self._draft_stale.discard(slot)
+                else:
+                    self._draft_stale.add(slot)
+            return req, slot, first, drops
 
     def _finish_admissions(self, admitted: list) -> None:
         """One fetch of the admitted rows' first tokens (and MoE drops),
@@ -1161,7 +1190,7 @@ class Engine:
         fetched = [f for _, _, f, _ in admitted]
         if self._count_drops:
             fetched += [d.to(f.dtype) for (_, _, f, d) in admitted]
-        fetched = torch.stack(fetched).cpu().numpy()
+        fetched = _fetch(torch.stack(fetched)).numpy()
         firsts = fetched[:len(admitted)]
         self.moe_prefill_dropped_total += int(fetched[len(admitted):].sum())
         now = time.perf_counter()
@@ -1308,90 +1337,96 @@ class Engine:
     def _run_chunk(self, k: int, n_units: int, flavor: str,
                    n_active: int) -> None:
         """Run ``n_units`` units of kind ``k`` (0: plain steps) and replay
-        their tokens into the requests: the same on every rank."""
-        bufs = self._bufs
-        if self._dirty:
-            bufs.upload(self._tokens, self._temps, self._done,
-                        self._remaining)
-            self._dirty = False
-        # timed after the re-prime: the bandit estimates each arm's steady
-        # rate, and a switch-only re-prime would sink the speculative arm
-        t_chunk = time.perf_counter()
-        cold = (k, flavor) not in self._chunk_seen
-        self._chunk_seen.add((k, flavor))
-        bufs.start()
-        unit = self._units[k]
-        for _ in range(n_units):
-            unit()
-        if k > 0:
-            # emits [n_cycles, SLOTS, K+1] and counts [n_cycles, SLOTS] in
-            # the one host sync
-            emits = bufs.emits[k][:n_units]
-            counts = bufs.counts[k][:n_units]
-            host = torch.cat([emits.flatten(), counts.flatten().long()])
-            host = host.cpu().numpy()
-            emits = host[:emits.numel()].reshape(emits.shape)
-            counts = host[emits.size:].reshape(counts.shape)
-            self.spec_cycles_total += int((counts > 0).sum())
-            self.spec_cycle_tokens_total += int(counts.sum())
+        their tokens into the requests, as one ``engine.chunk`` span: the
+        same on every rank."""
+        with spans.span("engine.chunk", k=k, units=n_units, slots=self.slots,
+                        active=n_active) as chunk:
+            bufs = self._bufs
+            if self._dirty:
+                bufs.upload(self._tokens, self._temps, self._done,
+                            self._remaining)
+                self._dirty = False
+            # timed after the re-prime: the bandit estimates each arm's steady
+            # rate, and a switch-only re-prime would sink the speculative arm
+            t_chunk = time.perf_counter()
+            cold = (k, flavor) not in self._chunk_seen
+            self._chunk_seen.add((k, flavor))
+            bufs.start()
+            unit = self._units[k]
+            for _ in range(n_units):
+                unit()
+            if k > 0:
+                # emits [n_cycles, SLOTS, K+1] and counts [n_cycles, SLOTS] in
+                # the one host sync
+                emits = bufs.emits[k][:n_units]
+                counts = bufs.counts[k][:n_units]
+                host = torch.cat([emits.flatten(), counts.flatten().long()])
+                host = _fetch(host).numpy()
+                emits = host[:emits.numel()].reshape(emits.shape)
+                counts = host[emits.size:].reshape(counts.shape)
+                self.spec_cycles_total += int((counts > 0).sum())
+                self.spec_cycle_tokens_total += int(counts.sum())
 
-            def row_tokens(i):
-                return [int(t) for c in range(emits.shape[0])
-                        for t in emits[c, i, :counts[c, i]]]
-        else:
-            # [n_steps, SLOTS]; the one host sync
-            toks = bufs.toks[:n_units].cpu().numpy()
-            if self.spec_rules:
-                # the target moved on and the draft did not
-                self._draft_stale.update(
-                    i for i, r in enumerate(self._slot_req) if r is not None)
-
-            def row_tokens(i):
-                return [int(t) for t in toks[:, i]]
-        now = time.perf_counter()
-        toks_before = self.tokens_total
-        # every row's carried token (frozen rows hold theirs)
-        for i in range(self.slots):
-            rt = row_tokens(i)
-            if rt:
-                self._tokens[i] = rt[-1]
-        for i, req in enumerate(self._slot_req):
-            if req is None:
-                continue
-            # replay the device's freeze logic to pick the real tokens
-            for tok in row_tokens(i):
-                if self._done[i]:
-                    break
-                req.out.append(tok)
-                self.tokens_total += 1
-                self._remaining[i] -= 1
-                if self._remaining[i] <= 0 or (
-                    self.eos_id >= 0 and tok == self.eos_id
-                ):
-                    self._done[i] = True
-            if self._done[i]:
-                req.done_at = now
-                req._finish()
-                with self._cv:  # stats() sorts these concurrently
-                    self.latency_samples.append(req.latency_s)
-                self._slot_req[i] = None
-                self._temps[i] = 0.0
-                self._draft_stale.discard(i)  # evicted: nothing to re-prime
+                def row_tokens(i):
+                    return [int(t) for c in range(emits.shape[0])
+                            for t in emits[c, i, :counts[c, i]]]
             else:
-                req._notify_progress()
-        emitted = self.tokens_total - toks_before
-        dt = now - t_chunk
-        self._bandit_update(n_active, k, emitted, dt, flavor=flavor,
-                            cold=cold)
-        if not cold and emitted > 0 and dt > 0:
-            rate = emitted / dt
-            with self._cv:  # metrics()/stats() read concurrently
-                cur = self.tok_s_ewma
-                self.tok_s_ewma = (
-                    rate if cur is None
-                    else (1 - self.BANDIT_ALPHA) * cur
-                    + self.BANDIT_ALPHA * rate
-                )
+                # [n_steps, SLOTS]; the one host sync
+                toks = _fetch(bufs.toks[:n_units]).numpy()
+                if self.spec_rules:
+                    # the target moved on and the draft did not
+                    self._draft_stale.update(
+                        i for i, r in enumerate(self._slot_req)
+                        if r is not None)
+
+                def row_tokens(i):
+                    return [int(t) for t in toks[:, i]]
+            now = time.perf_counter()
+            toks_before = self.tokens_total
+            # every row's carried token (frozen rows hold theirs)
+            for i in range(self.slots):
+                rt = row_tokens(i)
+                if rt:
+                    self._tokens[i] = rt[-1]
+            for i, req in enumerate(self._slot_req):
+                if req is None:
+                    continue
+                # replay the device's freeze logic to pick the real tokens
+                for tok in row_tokens(i):
+                    if self._done[i]:
+                        break
+                    req.out.append(tok)
+                    self.tokens_total += 1
+                    self._remaining[i] -= 1
+                    if self._remaining[i] <= 0 or (
+                        self.eos_id >= 0 and tok == self.eos_id
+                    ):
+                        self._done[i] = True
+                if self._done[i]:
+                    req.done_at = now
+                    req._finish()
+                    with self._cv:  # stats() sorts these concurrently
+                        self.latency_samples.append(req.latency_s)
+                    self._slot_req[i] = None
+                    self._temps[i] = 0.0
+                    # evicted: nothing to re-prime
+                    self._draft_stale.discard(i)
+                else:
+                    req._notify_progress()
+            emitted = self.tokens_total - toks_before
+            chunk.set(emitted=emitted)
+            dt = now - t_chunk
+            self._bandit_update(n_active, k, emitted, dt, flavor=flavor,
+                                cold=cold)
+            if not cold and emitted > 0 and dt > 0:
+                rate = emitted / dt
+                with self._cv:  # metrics()/stats() read concurrently
+                    cur = self.tok_s_ewma
+                    self.tok_s_ewma = (
+                        rate if cur is None
+                        else (1 - self.BANDIT_ALPHA) * cur
+                        + self.BANDIT_ALPHA * rate
+                    )
 
     def _loop(self) -> None:
         with torch.inference_mode():
@@ -1498,7 +1533,9 @@ class Engine:
                     self.requests_total += 1
                     admitted.append(self._admit_one(req, slot, bool(prime)))
                     if last:
-                        self._finish_admissions(admitted)
+                        with spans.span("engine.admit",
+                                        admitted=len(admitted)):
+                            self._finish_admissions(admitted)
                         admitted = []
                 elif kind == _REPRIME:
                     self._reprime_draft()

@@ -65,13 +65,13 @@ def test_importing_every_module_loads_no_jax_or_nanotpu():
     assert {f"nanotpu_torch.models.{m}" for m in
             ("quant", "speculative", "distill", "mixtral")} <= loaded
     assert {"nanotpu_torch.serving.graphs",
-            "nanotpu_torch.serving.bench"} <= loaded
+            "nanotpu_torch.metrics.spans"} <= loaded
     assert {"nanotpu_torch.parallel.infer",
             "nanotpu_torch.parallel.pipeline",
             "nanotpu_torch.agent.discovery"} <= loaded
     assert {p.name for p in PORT_FILES} >= {"quant.py", "speculative.py",
                                             "distill.py", "graphs.py",
-                                            "bench.py", "mixtral.py",
+                                            "spans.py", "mixtral.py",
                                             "infer.py", "pipeline.py",
                                             "discovery.py"}
 
