@@ -36,12 +36,19 @@ them:
    plain versions; launches exact (10 forward and 10 backward: the 6
    future blocks launch nothing); timed against whole-sequence flash and
    profiled (wall, device busy, the host's time to issue a call);
+4b. decode attend phase (after the Mixtral kernel checks): the decode
+   kernel (``ops/csrc/decode_attn.cu``) against its plain version at the
+   serving cells' caches (B=32, T=4096 and B=8, T=8192; 32/8 heads of
+   128; row lengths drawn from the chat and long-prompt mixes), bf16 and
+   f32 (bf16 also row-scaled, to DECODE_ROW_TOL); then its time, the plain einsum's, one masked SDPA call's and the
+   bound on the rows' valid bytes;
 5. serving phase: the serving flagship preset (vocab 32768, dim 1024, 12
    layers, 16/8 heads, bf16) at full width with 8 slots and max_len 2048,
    random weights from a seeded generator, behind the port's HTTP server;
    concurrent ``/v1/generate`` requests over several prefill buckets, one of
    them SSE; checks tokens, determinism, ``/v1/stats`` and ``/metrics``, and
-   that every admission prefill launched the forward kernel once per layer.
+   that every admission prefill launched the forward kernel once per layer
+   and the decode kernel launched in the warm-up's runs and capture alone.
    Every engine on the card (this phase's and all later ones') replays its
    decode step and speculative cycles as CUDA graphs captured at warm-up,
    unless it is built with ``cuda_graphs=False``; each serving path checks
@@ -200,7 +207,11 @@ launches
 from 0 and reads them just after it ran; the table gives each path's count
 and their sum. A decode graph captures no flash launch, so each serving
 path's count stays exact: the forward kernel once a layer for each
-prefill. A training graph captures a step's forward and backward
+prefill, and the decode kernel once a layer of each ``_rows_forward`` a
+unit runs on the host: an eager engine's warm-up and every unit it runs
+(``Engine.units_run``), a graphed engine's warm-up runs and capture of
+each unit, and nothing in a replay (``decode_launches``); the serving
+paths count from the engine's construction. A training graph captures a step's forward and backward
 launches: the wrappers count on the host, so the graphed step takes
 capture's counts back and adds one step's at each replay
 (``GraphedTrainStep``), and the counts stay exact.
@@ -246,6 +257,15 @@ TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 #: scale; a dropped or misplaced tile costs most of |want| in every row it
 #: touches, however small that row's gradients are.
 GRAD_RMS_FLOOR = 1e-3
+#: the decode kernel in bf16 is held besides element by element, each
+#: error over |want| plus the RMS of want's row (one query row of one head,
+#: the last axis): at a serving cache's lengths the output's values are
+#: ~0.02-0.07, and TOLERANCE's 2e-2 would pass a 64-position tile left out.
+#: The kernel rounds its probabilities and its output to bf16 (2^-9 each):
+#: it read 0.0051-0.0066 at chat's and long prompts' caches (H100), the
+#: einsum, which rounds its logits too, 0.0159-0.0220; a tile left out
+#: reads 0.65-3.4 there.
+DECODE_ROW_TOL = 0.02
 SLOTS, MAX_LEN, NEW_TOKENS = 8, 2048, 32
 #: the training drive: the model sees TRAIN_S tokens after the loss shift
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 10
@@ -381,6 +401,118 @@ def kernel_phase(card: str) -> dict:
           f"bound {bound_ms:.5f} ms ({bound_by}), err {err:.3g}")
     rows["train"] = {"ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "max_abs_err": err}
+    reset_launches()  # comparisons and timings do not count
+    return rows
+
+
+#: the decode attend's timed shapes: the serving cells' caches at Mistral
+#: 7B's heads (32/8 of 128, bf16), a row's length drawn as the cells' mixes
+#: make it, a prompt plus a decode step somewhere inside its answer
+DECODE_SHAPES = {
+    "chat": dict(B=32, T=4096, prompt=("lognormal", 512, 0.9, 32, 3072),
+                 answer=("lognormal", 128, 0.8, 16, 1024)),
+    "long": dict(B=8, T=8192, prompt=("uniform", 3072, 7168),
+                 answer=("uniform", 16, 64)),
+}
+
+
+def decode_lengths(rng, B: int, prompt: tuple, answer: tuple) -> np.ndarray:
+    """B cache lengths: a prompt plus a uniform share of an answer, each
+    drawn from its distribution (lognormal: median, sigma, min, max;
+    uniform: min, max)."""
+    def draw(dist):
+        if dist[0] == "lognormal":
+            _, median, sigma, lo, hi = dist
+            x = rng.lognormal(np.log(median), sigma, B)
+        else:
+            _, lo, hi = dist
+            x = rng.uniform(lo, hi + 1, B)
+        return np.clip(x.astype(np.int64), lo, hi)
+
+    return draw(prompt) + (rng.uniform(0, 1, B) * draw(answer)).astype(np.int64)
+
+
+def row_scaled_err(got, want) -> float:
+    """Largest error over |want| plus the RMS of want's row (the last
+    axis); NaN where any value is not finite."""
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    return ((got.float() - want).abs() / (want.abs() + rms)).max().item()
+
+
+def decode_attn_phase(card: str) -> dict:
+    """The decode attend (``ops/csrc/decode_attn.cu``) against its plain
+    version at the serving cells' shapes, bf16 and f32 (launches exact;
+    bf16 to TOLERANCE and row-scaled to DECODE_ROW_TOL, and beside the
+    kernel's errors the plain einsum's in bf16 against the same f32), then
+    at each shape: the kernel's time, the plain einsum's,
+    one masked SDPA call's on a [B, KV, T, hd] copy of the cache (a
+    yardstick the port never calls), and the bound: the rows' valid K and
+    V bytes, q and out at the HBM rate."""
+    from nanotpu_torch.ops.decode_attention import (attend_rows_ref,
+                                                    decode_attention)
+
+    rng = np.random.default_rng(16)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    H, KV, D = 32, 8, 128
+    rows = {}
+    for name, shape in DECODE_SHAPES.items():
+        B, T = shape["B"], shape["T"]
+        lens = decode_lengths(rng, B, shape["prompt"], shape["answer"])
+        base = torch.tensor(np.minimum(lens, T - 1), dtype=torch.int32,
+                            device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dtype)
+            before = decode_attention.launches
+            out = decode_attention(q, k, v, base)
+            if decode_attention.launches != before + 1:
+                raise AssertionError("decode_attention launched "
+                                     f"{decode_attention.launches - before}")
+            want = attend_rows_ref(q.float(), k.float(), v.float(), base)
+            err = check_forward(f"decode_attn {name} {str(dtype)[6:]}", out,
+                                None, want, None, dtype)
+            row_err = row_scaled_err(out, want)
+            # the plain version in the working type, against the same f32
+            plain = attend_rows_ref(q, k, v, base)
+            plain_err = (plain.float() - want).abs().max().item()
+            plain_row_err = row_scaled_err(plain, want)
+            if dtype == torch.bfloat16 and not row_err <= DECODE_ROW_TOL:
+                raise AssertionError(
+                    f"decode_attn {name}: row-scaled error {row_err} > "
+                    f"{DECODE_ROW_TOL}")
+            del out, want, plain
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= base[:, None])[:, None, None, :]
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        qt = q.transpose(1, 2)
+        valid = int((base.long() + 1).sum())
+        nbytes = 2 * (2 * valid * KV * D + 2 * B * H * D)
+        row = {
+            "ms": cuda_ms(lambda: decode_attention(q, k, v, base)),
+            "plain_ms": cuda_ms(lambda: attend_rows_ref(q, k, v, base), reps=5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES,
+            "bound_by": "bytes",
+            "mean_len": valid / B,
+            "max_abs_err": err,  # bf16, against the plain version in f32
+            "row_scaled_err": row_err,
+            "plain_max_abs_err": plain_err,
+            "plain_row_scaled_err": plain_row_err,
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        print(f"decode_attn {name} (B={B}, T={T}, 32/8 heads of 128, bf16, "
+              f"mean length {row['mean_len']:.1f}): kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms on valid bytes "
+              f"({100 * row['bound_share']:.1f}% of it); bf16 error against "
+              f"f32 {err:.3g} (row-scaled {row_err:.3g}, tol "
+              f"{DECODE_ROW_TOL}), the plain einsum's {plain_err:.3g} "
+              f"({plain_row_err:.3g})")
+        del q, k, v, kt, vt, qt, mask
+    torch.cuda.empty_cache()
     reset_launches()  # comparisons and timings do not count
     return rows
 
@@ -612,7 +744,7 @@ def ring_phase(card: str) -> dict:
         n = RING_SP * (RING_SP + 1) // 2
         want = {"flash_fwd": n, "flash_bwd_fused": 0 if two_pass else n,
                 "flash_bwd_dq": n if two_pass else 0,
-                "flash_bwd_dkv": n if two_pass else 0}
+                "flash_bwd_dkv": n if two_pass else 0, "decode_attn": 0}
         label = f"ring S={S} sp={RING_SP} (blocks of {S // RING_SP})"
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
@@ -688,6 +820,8 @@ BF16_KERNELS = (
     (re.compile(r"bwd_dq_bf16ILi(\d+)E"), lambda d: f"bwd_dq_bf16<{d}>"),
     (re.compile(r"bwd_kv_bf16ILi(\d+)ELb(\d)E"),
      lambda d, dq: f"bwd_kv_bf16<{d}, {'true' if dq == '1' else 'false'}>"),
+    (re.compile(r"decode_split_bf16ILi(\d+)ELi(\d+)E"),
+     lambda d, nw: f"decode_split_bf16<{d}, {nw}>"),
 )
 #: ptxas notes that a wgmma pipeline lost its overlap (C7510-C7519: wgmma
 #: serialized) or that a setmaxnreg was ignored (C7507); only the bf16
@@ -747,8 +881,9 @@ def drive_http(engine, label: str) -> dict:
     concurrent ``/v1/generate`` requests at the four prompt lengths (one of
     them repeated) and one SSE request, checked (tokens, determinism,
     ``/v1/stats``, ``/metrics``, one forward-kernel launch per layer an
-    admission). Launches are counted from 0 just before and read just
-    after. Returns the greedy tokens of the four prompts, the TTFTs, the
+    admission and the decode kernel's launches of the units run eagerly:
+    none in a graphed engine). Launches are counted from 0 just before and
+    read just after. Returns the greedy tokens of the four prompts, the TTFTs, the
     launches and the generator the prompts came from (``measure`` goes on
     drawing from it)."""
     from nanotpu_torch.serving.http import serve
@@ -781,6 +916,7 @@ def drive_http(engine, label: str) -> dict:
 
     try:
         reset_launches()
+        units_before = dict(engine.units_run)
         threads = [threading.Thread(target=client, args=(i, job))
                    for i, job in enumerate(jobs + [stream_job])]
         t_start = time.perf_counter()
@@ -834,12 +970,8 @@ def drive_http(engine, label: str) -> dict:
         server.shutdown()
         server.server_close()
     admissions = len(threads)
-    if launches != {**dict.fromkeys(launches, 0),
-                    "flash_fwd": cfg.n_layers * admissions}:
-        raise AssertionError(
-            f"{label}: kernel launches {launches} for {admissions} admissions "
-            f"of {cfg.n_layers} layers"
-        )
+    check_serving_launches(label, launches, cfg.n_layers, admissions,
+                           decode_launches(engine, units_before))
     ttfts = [r["ttft_ms"] for r in results.values() if "ttft_ms" in r]
     ttfts.append(sse["final"]["ttft_ms"])
     print(f"{label}: served {admissions} concurrent requests (prompts "
@@ -852,20 +984,42 @@ def drive_http(engine, label: str) -> dict:
             "moe_prefill_dropped_total": engine.moe_prefill_dropped_total}
 
 
+def warm_launches(engine, label: str) -> dict:
+    """Waits for ``engine``, built just after ``reset_launches()``, to warm
+    up; returns its launches so far, held exact: its warm-up's prefill and
+    decode units."""
+    engine.wait_warm()
+    warm = read_launches()
+    print(f"{label} warm-up launches {warm}")
+    check_serving_launches(f"{label} warm-up", warm, engine.cfg.n_layers, 1,
+                           decode_launches(engine))
+    return warm
+
+
+def drive_from_build(engine, label: str, warm: dict) -> dict:
+    """``drive_http(engine, label)``, its launches counted from the
+    engine's construction: ``warm``'s added."""
+    out = drive_http(engine, label)
+    out["launches"] = {name: n + warm[name]
+                       for name, n in out["launches"].items()}
+    return out
+
+
 def serving_phase(card: str) -> dict:
     from nanotpu_torch.serving.server import build_engine
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    reset_launches()
     engine = build_engine("flagship", slots=SLOTS, max_len=MAX_LEN,
                           seed=0, device="cuda")
     try:
-        engine.wait_warm()
+        warm = warm_launches(engine, "serving")
         cfg = engine.cfg
         print(f"flagship engine ready in {time.perf_counter() - t0:.1f} s "
               f"(dim {cfg.dim}, {cfg.n_layers} layers, {cfg.n_heads}/"
               f"{cfg.n_kv_heads} heads, {cfg.dtype}, attn {cfg.attn_impl})")
-        out = drive_http(engine, "serving")
+        out = drive_from_build(engine, "serving", warm)
         out.update(measure(engine, out.pop("rng"), card))
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out["graphs"] = graph_record(engine, "serving")
@@ -921,7 +1075,7 @@ def graphs_phase(card: str) -> dict:
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, 32768, 64).tolist() for _ in range(SLOTS)]
     out = {}
-    admissions = 0
+    admissions = decode = 0
     reset_launches()
     for label, kw in (("bf16", {}),
                       ("int8", dict(quantize=True, kv_int8=True))):
@@ -967,6 +1121,7 @@ def graphs_phase(card: str) -> dict:
         finally:
             for eng in engines.values():
                 eng.stop()
+                decode += decode_launches(eng)
         for graphs, r in res.items():
             del r["outs"]
             name = "graphed" if graphs else "eager"
@@ -983,12 +1138,12 @@ def graphs_phase(card: str) -> dict:
                   + f"; top kernels {prof['top']}")
         out[label] = {"graphed" if g else "eager": r for g, r in res.items()}
     launches = read_launches()
-    print(f"graphs path launches {launches} ({admissions} prefills); greedy "
+    print(f"graphs path launches {launches} ({admissions} prefills, "
+          f"{decode} decode launches: the eager engines' units and "
+          f"warm-ups, the graphed ones' warm-ups and captures); greedy "
           f"tokens equal in every eager and graphed round")
-    if launches != {**dict.fromkeys(launches, 0),
-                    "flash_fwd": n_layers * admissions}:
-        raise AssertionError(f"graphs path launches {launches} for "
-                             f"{admissions} prefills")
+    check_serving_launches("graphs path", launches, n_layers, admissions,
+                           decode)
     out["launches"] = launches
     return out
 
@@ -1151,16 +1306,18 @@ def int8_serving_phase(card: str, bf16_greedy: list) -> dict:
     cache against one decode step's attend."""
     from nanotpu_torch.models import quant
     from nanotpu_torch.models.llama import forward, init_params
-    from nanotpu_torch.serving.engine import _attend_rows, dequantize_kv
+    from nanotpu_torch.ops.decode_attention import decode_attention
+    from nanotpu_torch.serving.engine import dequantize_kv
     from nanotpu_torch.serving.server import build_engine
 
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     engine = build_engine("flagship", slots=SLOTS, max_len=MAX_LEN, seed=0,
                           device="cuda", quantize=True, kv_int8=True)
     try:
-        engine.wait_warm()
+        warm = warm_launches(engine, "int8 serving")
         cfg = engine.cfg
-        out = drive_http(engine, "int8 serving")
+        out = drive_from_build(engine, "int8 serving", warm)
         pairs = [(a, b) for x, y in zip(out.pop("greedy"), bf16_greedy)
                  for a, b in zip(x, y)]
         out["greedy_equal_share"] = sum(a == b for a, b in pairs) / len(pairs)
@@ -1222,8 +1379,8 @@ def int8_serving_phase(card: str, bf16_greedy: list) -> dict:
         v_bf16 = dequantize_kv(c.v[0], c.v_scale[0], torch.bfloat16)
         out["dequantize_kv_ms"] = cuda_ms(
             lambda: dequantize_kv(c.k[0], c.k_scale[0], torch.bfloat16))
-        out["attend_ms"] = cuda_ms(lambda: _attend_rows(q, k_bf16, v_bf16,
-                                                         base))
+        out["attend_ms"] = cuda_ms(lambda: decode_attention(q, k_bf16, v_bf16,
+                                                             base))
     print(f"int8 serving on {card}: greedy tokens equal to bf16's "
           f"{out['greedy_equal_share']:.4f}; logits max|diff|/RMS "
           f"{out['logit_err_over_rms']:.4f}, top-1 equal "
@@ -1435,7 +1592,7 @@ def speculative_phase(card: str) -> dict:
                              f"want {want_fwd} forward")
 
     launches = dict.fromkeys(distill_launches, 0)
-    admissions = 0
+    admissions = decode = 0
 
     def engine_run(params, cfg, kw, drive):
         """An engine over ``params``, warmed up, driven by ``drive(engine)``
@@ -1443,7 +1600,7 @@ def speculative_phase(card: str) -> dict:
         prefills (one a request and the warm-up's) go into the path's. A
         result that is a dict gains the engine's peak memory (above what
         was allocated before it) and, graphed, its graph pool's bytes."""
-        nonlocal admissions
+        nonlocal admissions, decode
         speculative = "draft_params" in kw
         if speculative:
             reset_launches()
@@ -1469,6 +1626,7 @@ def speculative_phase(card: str) -> dict:
             for name, n_launched in read_launches().items():
                 launches[name] += n_launched
             admissions += n + 1
+            decode += decode_launches(eng)
         return res
 
     # f32: speculation changes no greedy token
@@ -1606,11 +1764,9 @@ def speculative_phase(card: str) -> dict:
                  f"{res['profile']}" if "profile" in res else ""))
     print(f"speculative phase: graphed greedy tokens equal eager ones for "
           f"plain and always at {SPEC_ROWS} rows; speculative path launches "
-          f"{launches} ({admissions} prefills)")
-    if launches != {**dict.fromkeys(launches, 0),
-                    "flash_fwd": cfg.n_layers * admissions}:
-        raise AssertionError(f"speculative path launches {launches} for "
-                             f"{admissions} prefills")
+          f"{launches} ({admissions} prefills, {decode} decode launches)")
+    check_serving_launches("speculative path", launches, cfg.n_layers,
+                           admissions, decode)
     return {"distilled": distilled, "policies": policies,
             "launches": launches, "distill_launches": distill_launches,
             "f32_tokens_per_cycle": f32_tpc,
@@ -1637,19 +1793,57 @@ def distill_cli_phase(card: str) -> dict:
 
 def reset_launches() -> None:
     from nanotpu_torch.ops import attention as att
+    from nanotpu_torch.ops.decode_attention import decode_attention
 
     for fn in (att.flash_attention, att.flash_bwd_fused, att.flash_bwd_dq,
-               att.flash_bwd_dkv):
+               att.flash_bwd_dkv, decode_attention):
         fn.launches = 0
 
 
 def read_launches() -> dict:
     from nanotpu_torch.ops import attention as att
+    from nanotpu_torch.ops.decode_attention import decode_attention
 
     return {"flash_fwd": att.flash_attention.launches,
             "flash_bwd_fused": att.flash_bwd_fused.launches,
             "flash_bwd_dq": att.flash_bwd_dq.launches,
-            "flash_bwd_dkv": att.flash_bwd_dkv.launches}
+            "flash_bwd_dkv": att.flash_bwd_dkv.launches,
+            "decode_attn": decode_attention.launches}
+
+
+def decode_launches(engine, units_before: dict | None = None) -> int:
+    """The decode kernel's launches by ``engine``, exactly: one a layer of
+    each ``_rows_forward`` (a unit runs the target's once, a speculative
+    cycle of K the draft's K + 1 times besides) in every unit run eagerly;
+    a graph's replay launches none. Since ``units_before`` (the engine's
+    ``units_run`` at a window's start): the units its chunks ran eagerly
+    since. Without it, from the engine's construction: its warm-up's too,
+    one eager run of each unit, or in graph mode StepGraph.WARMUP_RUNS and
+    the capture."""
+    from nanotpu_torch.serving.graphs import StepGraph
+
+    n = 0
+    for k, units in engine.units_run.items():
+        per_unit = engine.cfg.n_layers + (
+            (k + 1) * engine.draft_cfg.n_layers if k else 0)
+        runs = 0 if engine.cuda_graphs else units
+        if units_before is None:
+            runs += StepGraph.WARMUP_RUNS + 1 if engine.cuda_graphs else 1
+        elif not engine.cuda_graphs:
+            runs -= units_before.get(k, 0)
+        n += per_unit * runs
+    return n
+
+
+def check_serving_launches(label: str, launches: dict, n_layers: int,
+                           prefills: int, decode: int) -> None:
+    """Raises unless ``launches`` are exactly the forward kernel once a
+    layer for each of ``prefills`` prefills and ``decode`` decode kernel
+    launches (``decode_launches``), and nothing else."""
+    want = {**dict.fromkeys(launches, 0), "flash_fwd": n_layers * prefills,
+            "decode_attn": decode}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
 
 
 def training_phase(card: str) -> dict:
@@ -1745,12 +1939,13 @@ def check_graphed(step_fn, steps: int, label: str) -> dict:
 def check_train_launches(launches: dict, n_layers: int, steps: int,
                          two_pass: bool, label: str) -> None:
     """Exactly one forward and one backward (fused, or dq and dk/dv) a
-    layer a step."""
+    layer a step, and no decode kernel."""
     n = n_layers * steps
     want = ({"flash_fwd": n, "flash_bwd_fused": 0, "flash_bwd_dq": n,
              "flash_bwd_dkv": n} if two_pass else
             {"flash_fwd": n, "flash_bwd_fused": n, "flash_bwd_dq": 0,
              "flash_bwd_dkv": 0})
+    want["decode_attn"] = 0
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
 
@@ -2163,7 +2358,8 @@ def mesh_serving_phase(card: str) -> dict:
 
     Launches: each mesh engine's, from its construction (warm-up prefill
     included) to its last round, exact: the forward kernel once a target
-    layer for each prefill, nothing else (the draft is dense)."""
+    layer for each prefill (the draft is dense), the decode kernel in the
+    warm-up's runs and capture of each unit, nothing else."""
     from nanotpu_torch.models import distill
     from nanotpu_torch.models.llama import LlamaConfig, init_params
     from nanotpu_torch.parallel import train
@@ -2232,12 +2428,6 @@ def mesh_serving_phase(card: str) -> dict:
             raise
         return engine
 
-    def check(label, launches, n_layers, n_prefills):
-        want = {**dict.fromkeys(launches, 0),
-                "flash_fwd": n_layers * n_prefills}
-        if launches != want:
-            raise AssertionError(f"{label}: launches {launches}, want {want}")
-
     with nccl_world() as mesh:
         # the serving flagship, bf16
         cfg = serving_config("flagship", MAX_LEN)
@@ -2248,7 +2438,8 @@ def mesh_serving_phase(card: str) -> dict:
             prompts_of(cfg, PROMPT_LENS), ("plain", "mesh", "mesh", "plain"))
         meshed.stop()
         plain.stop()
-        check("mesh serving (flagship)", launches, cfg.n_layers, n)
+        check_serving_launches("mesh serving (flagship)", launches,
+                               cfg.n_layers, n, decode_launches(meshed))
         out["flagship"], out["launches"]["mesh_serving"] = res, launches
         print(f"mesh serving (flagship, bf16, NCCL world 1) on {card}: greedy "
               f"tokens of {res['greedy_equal']} prompts equal the plain "
@@ -2294,7 +2485,8 @@ def mesh_serving_phase(card: str) -> dict:
         finally:
             meshed.stop()
             plain.stop()
-        check("mesh serving (8B)", launches, cfg.n_layers, n)
+        check_serving_launches("mesh serving (8B)", launches, cfg.n_layers,
+                               n, decode_launches(meshed))
         res.update(n_params=n_params, init_s=init_s, peak_mem_gib=peak,
                    ttft_1024_ms=float(np.median(ttft)), ttft_samples_ms=ttft,
                    decode_profile=prof)
@@ -2344,7 +2536,8 @@ def mesh_serving_phase(card: str) -> dict:
             graph_record(spec, "mesh speculative engine")
         finally:
             spec.stop()
-        check("mesh speculative", launches, cfg.n_layers, 1 + len(prompts))
+        check_serving_launches("mesh speculative", launches, cfg.n_layers,
+                               1 + len(prompts), decode_launches(spec))
         if got != want:
             raise AssertionError("mesh speculative: f32 greedy tokens differ "
                                  "from the plain engine's")
@@ -2954,7 +3147,9 @@ def mixtral_serving_phase(card: str) -> dict:
     the profiler, the idle share of each; then one round with int8
     weights and an int8 KV cache: tokens/s, parameter bytes and the share
     of greedy tokens equal to bf16's. Every prefill after the HTTP drive is
-    counted too, exactly: one a request and one an engine's warm-up."""
+    counted too, exactly: one a request and one an engine's warm-up; and
+    the decode kernel's launches: the eager twin's units, each new
+    engine's warm-up and capture."""
     from nanotpu_torch.models import mixtral
     from nanotpu_torch.models.quant import param_bytes, quantize_params
     from nanotpu_torch.serving.engine import Engine
@@ -2985,10 +3180,13 @@ def mixtral_serving_phase(card: str) -> dict:
                 "top": top}
 
     try:
+        reset_launches()
         graphed, ready_s = engine(params)
-        out = drive_http(graphed, "Mixtral serving")
+        out = drive_from_build(graphed, "Mixtral serving",
+                               warm_launches(graphed, "Mixtral serving"))
         out.update(measure(graphed, out.pop("rng"), card))
         reset_launches()
+        units_before = dict(graphed.units_run)
         requests_before = graphed.requests_total
         co, tok_s = decode_round(graphed, prompts, MOE_NEW)
         solo = [graphed.generate(p, MOE_NEW) for p in prompts]
@@ -3022,10 +3220,10 @@ def mixtral_serving_phase(card: str) -> dict:
             graphed.requests_total - requests_before)
         launches = read_launches()
         out["graph_launches"] = launches
-        if launches != {**dict.fromkeys(launches, 0),
-                        "flash_fwd": cfg.n_layers * prefills}:
-            raise AssertionError(f"Mixtral serving launches {launches} for "
-                                 f"{prefills} prefills")
+        check_serving_launches(
+            "Mixtral serving after the drive", launches, cfg.n_layers,
+            prefills, decode_launches(graphed, units_before)
+            + sum(decode_launches(e) for e in engines[1:]))
     finally:
         for eng in engines:
             eng.stop()
@@ -3307,8 +3505,9 @@ def moe_mesh_serving_phase(card: str) -> dict:
     PROMPT_LENS tokens and of SLOTS x 64-token prompts x MOE_NEW equal to
     the plain engine's, the same ``moe_prefill_dropped_total``, the decode
     graphs replayed, launches exact (the forward kernel once a layer a
-    prefill, warm-up included); decode tokens/s of each, peak memory of the
-    mesh engine against the weights' bytes."""
+    prefill, warm-up included; the decode kernel in the warm-up's runs and
+    capture); decode tokens/s of each, peak memory of the mesh engine
+    against the weights' bytes."""
     from nanotpu_torch.models import mixtral
     from nanotpu_torch.models.quant import param_bytes
     from nanotpu_torch.serving.engine import Engine
@@ -3337,7 +3536,8 @@ def moe_mesh_serving_phase(card: str) -> dict:
         return {"outs": outs, "round_outs": round_outs, "tok_s": tok_s,
                 "ready_s": ready_s, "graphs": graphs,
                 "drops": eng.moe_prefill_dropped_total,
-                "requests": eng.requests_total}
+                "requests": eng.requests_total,
+                "decode_launches": decode_launches(eng)}
 
     params = mixtral.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -3358,8 +3558,6 @@ def moe_mesh_serving_phase(card: str) -> dict:
     label = (f"MoE mesh serving ({cfg.n_layers} layers at 8x7B width, "
              f"NCCL world 1)")
     prefills = meshed["requests"] + 1  # and the warm-up's
-    want = {**dict.fromkeys(launches, 0),
-            "flash_fwd": cfg.n_layers * prefills}
     print(f"{label} on {card}: greedy tokens of prompts of {PROMPT_LENS} "
           f"tokens and of {SLOTS} x 64 x {MOE_NEW} equal the plain engine's: "
           f"{meshed['outs'] == plain['outs'] and meshed['round_outs'] == plain['round_outs']}; "
@@ -3376,8 +3574,8 @@ def moe_mesh_serving_phase(card: str) -> dict:
     if meshed["drops"] != plain["drops"]:
         raise AssertionError(f"{label}: prefill drops {meshed['drops']} "
                              f"against {plain['drops']}")
-    if launches != want:
-        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    check_serving_launches(label, launches, cfg.n_layers, prefills,
+                           meshed["decode_launches"])
     if not peak * 2**30 < 1.5 * weight_bytes:
         raise AssertionError(f"{label}: peak memory {peak:.3f} GiB holds the "
                              f"weights ({weight_bytes / 2**30:.3f} GiB) twice")
@@ -3823,6 +4021,7 @@ def main() -> None:
     bwd = timed(backward_phase, card)
     ring = timed(ring_phase, card)
     moe_kernels = timed(mixtral_kernel_phase, card)
+    decode = timed(decode_attn_phase, card)
     serve = timed(serving_phase, card)
     timed(parity_phase)
     graphed = timed(graphs_phase, card)
@@ -3915,6 +4114,16 @@ def main() -> None:
         if name == "flash_bwd_fused":  # Mixtral's training shape
             kernels[-1].update({f"mixtral_{k}": v
                                 for k, v in moe_kernels["bwd"].items()})
+    kernels.append({
+        "name": "decode_attn",
+        "route": "cuda",
+        "source": "nanotpu_torch/ops/csrc/decode_attn.cu",
+        "replaces": None,  # nanotpu's decode attend is a jnp einsum
+        **launches("decode_attn"),
+        # chat's cache (B=32, T=4096) and long prompts' (B=8, T=8192)
+        **{f"{shape}_{k}": v for shape, row in decode.items()
+           for k, v in row.items()},
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

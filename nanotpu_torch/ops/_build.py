@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {
     "flash_fwd": CSRC / "flash_fwd.cu",
     "flash_bwd": CSRC / "flash_bwd.cu",
+    "decode_attn": CSRC / "decode_attn.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

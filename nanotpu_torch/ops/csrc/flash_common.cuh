@@ -1,5 +1,6 @@
-// What the flash-attention kernels (flash_fwd.cu and flash_bwd.cu) share:
-// the NEG_INF sentinel, bf16 packing, and the skeleton of the two
+// What the attention kernels (flash_fwd.cu, flash_bwd.cu and, for its
+// helpers, decode_attn.cu) share: the NEG_INF sentinel, bf16 packing, the
+// card's SM count, and the skeleton of the two
 // Q-stationary bf16 kernels, the forward and the two-pass dq. Each .cu
 // builds into its own library, so the anonymous namespace gives every
 // library its own copy.

@@ -16,6 +16,11 @@ port of ``nanotpu/serving/engine.py``.
   :func:`nanotpu_torch.models.generate._run` over the prompt padded to a
   bucket length, so a flash config's prefill launches the CUDA kernel once
   per layer; the row is then copied into its slot.
+* **Decode attend through its own kernel.** Every ``_rows_forward`` (a
+  decode step, a speculative draft or verify) attends each layer's slot
+  cache through :func:`nanotpu_torch.ops.decode_attention.decode_attention`:
+  on a card one launch of a split-KV kernel that reads each row only up to
+  its own length, on the CPU nanotpu's einsum.
 * **int8** composes: ``linear`` dispatches on ``QArray`` leaves, so an
   engine built from ``quantize_params(params)`` runs weight-only int8, and
   ``kv_int8`` keeps the cache in int8 with one f32 scale per (row,
@@ -71,7 +76,6 @@ from __future__ import annotations
 import functools
 import itertools
 import logging
-import math
 import threading
 import time
 from collections import deque
@@ -86,7 +90,6 @@ from nanotpu_torch.metrics import spans
 from nanotpu_torch.metrics.stats import percentile
 from nanotpu_torch.models.generate import (
     KVCache,
-    NEG_INF,
     _run,
     apply_top_k,
     embed_rows,
@@ -107,6 +110,7 @@ from nanotpu_torch.models.speculative import (
     sample_probs,
 )
 from nanotpu_torch.ops import _build
+from nanotpu_torch.ops.decode_attention import decode_attention
 from nanotpu_torch.serving.graphs import DecodeBuffers, StepGraph
 
 log = logging.getLogger("nanotpu_torch.serving")
@@ -182,23 +186,6 @@ def dequantize_kv(q, scale, dtype):
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _attend_rows(q, k_cache, v_cache, base):
-    """q [B,S,H,hd] against cache [B,T,KV,hd]; row b's s-th new token sits
-    at position base[b]+s and attends positions <= itself. GQA stays
-    unexpanded (q heads grouped onto kv heads). S=1 is the decode step."""
-    B, S, H, hd = q.shape
-    KV, T = k_cache.shape[2], k_cache.shape[1]
-    qg = q.reshape(B, S, KV, H // KV, hd)
-    logits = torch.einsum("bsgrd,btgd->bgrst", qg, k_cache).float()
-    logits = logits * (1.0 / math.sqrt(hd))
-    frontier = base[:, None] + torch.arange(S, device=q.device)[None, :] + 1
-    mask = torch.arange(T, device=q.device)[None, None, :] < frontier[:, :, None]
-    logits = logits.masked_fill(~mask[:, None, None, :, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bgrst,btgd->bsgrd", probs, v_cache)
-    return out.reshape(B, S, H, hd)
-
-
 def _write_rows(cache_arr, new, offsets):
     """Write new [B, S, ...] into cache_arr [B, T, ...] at per-row offsets,
     in place; returns cache_arr. Rank-generic: serves the [T, KV, hd] value
@@ -264,7 +251,7 @@ def _rows_forward(params, cfg, cache, tokens, advance, head: bool = True,
                               rms_norm(x, layer["attn_norm"], cfg.norm_eps),
                               cfg, cos, sin, shard)
         k_view, v_view = _cache_update_and_views(cache, i, k, v, x.dtype)
-        out = _attend_rows(q, k_view, v_view, cache.lengths)
+        out = decode_attention(q, k_view, v_view, cache.lengths)
         x = x + project_out(layer["attn"], out, shard)
         x = x + ffn(layer, x, cfg, full_capacity=True, shard=shard)
     new_cache = cache._replace(lengths=cache.lengths + advance.to(torch.int32))
@@ -863,6 +850,9 @@ class Engine:
         self._units: dict[int, object] = {}
         #: K -> the captured :class:`~.graphs.StepGraph` (graph mode)
         self.graphs: dict[int, StepGraph] = {}
+        #: K -> the units of that kind chunks have run, replays or eager
+        #: runs (the warm-up's not counted)
+        self.units_run: dict[int, int] = dict.fromkeys(variant_ks, 0)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         #: the unit descriptor (a mesh's broadcast buffer), the count of
         #: descriptors sent or received, and a follower's requests, in
@@ -1355,6 +1345,7 @@ class Engine:
             unit = self._units[k]
             for _ in range(n_units):
                 unit()
+            self.units_run[k] += n_units
             if k > 0:
                 # emits [n_cycles, SLOTS, K+1] and counts [n_cycles, SLOTS] in
                 # the one host sync

@@ -98,6 +98,130 @@ def test_flash_prefill_launches_once_per_layer(card):
     assert flash.tolist() == dense.tolist()
 
 
+# -- the decode attend over the slot cache (ops/csrc/decode_attn.cu) --------
+
+def _decode_inputs(card, dtype, B, S, H, KV, D, T, seed):
+    """q, k, v on the card and ragged bases: an empty slot (0), a frozen
+    row at T - 1 (with S > 1 its later frontiers pass T), a row whose last
+    query ends exactly at T, and the rest drawn."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    q, k, v = mk(B, S, H, D), mk(B, T, KV, D), mk(B, T, KV, D)
+    base = torch.randint(0, T, (B,), generator=gen, device=card)
+    base[:3] = torch.tensor([0, T - 1, max(T - S, 0)])
+    return q, k, v, base.to(torch.int32)
+
+
+#: the decode kernel besides TOL: each error over |want| plus the RMS of
+#: want's row (one query row of one head). At a serving cache's lengths the
+#: outputs are ~0.02-0.07, under TOL's 2e-2. At chat's and long prompts'
+#: caches a 64-position tile left out reads 0.65-3.4, the kernel in bf16
+#: 0.005-0.007 (chip_smoke.py's DECODE_ROW_TOL, H100).
+DECODE_ROW_TOL = 0.02
+
+
+def _decode_err(card, dtype, B, S, H, KV, D, T, seed=0):
+    """(largest absolute error, largest row-scaled error) of the kernel
+    against the plain version in f32; NaN fails every bound."""
+    from nanotpu_torch.ops.decode_attention import (attend_rows_ref,
+                                                    decode_attention)
+
+    q, k, v, base = _decode_inputs(card, dtype, B, S, H, KV, D, T, seed)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, base)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = attend_rows_ref(q.float(), k.float(), v.float(), base)
+    diff = (out.float() - want).abs()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    return diff.max().item(), (diff / (want.abs() + rms)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 3, 5])
+@pytest.mark.parametrize("H,KV", [(32, 8), (8, 2), (4, 4), (8, 1)])
+def test_decode_kernel_matches_plain(card, dtype, D, S, H, KV):
+    """The kernel against the plain version in f32 on the same inputs, at
+    ragged bases and T = 200 (a split's span is 64 positions at this
+    size: several spans a row, the last one ragged)."""
+    err, row_err = _decode_err(card, dtype, 6, S, H, KV, D, 200, seed=S)
+    assert err <= TOL[dtype] and row_err <= DECODE_ROW_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,KV,D,T", [
+    (32, 1, 32, 8, 128, 4096),  # a Mistral decode step over chat's cache
+    (8, 1, 32, 8, 128, 8192),   # over long prompts' cache
+    (3, 9, 32, 4, 64, 300),     # 72 query rows a kv head: two groups
+    (3, 17, 8, 8, 128, 77),     # one position tile, S past a group
+])
+def test_decode_kernel_matches_plain_at_scale(card, dtype, B, S, H, KV, D, T):
+    """Spans of 512 on the grid of every span (those past a row's length
+    return at once), and query rows past one group of 64."""
+    err, row_err = _decode_err(card, dtype, B, S, H, KV, D, T, seed=T)
+    assert err <= TOL[dtype] and row_err <= DECODE_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_what_it_cannot_take(card):
+    from nanotpu_torch.ops.decode_attention import decode_attention
+
+    q, k, v, base = _decode_inputs(card, torch.bfloat16, 4, 1, 8, 2, 64, 64, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                         v[..., :32].contiguous(), base)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                         v, base)
+    with pytest.raises(ValueError, match="one device"):
+        decode_attention(q, k, v, base.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_launches_once_per_layer_in_a_captured_unit(card,
+                                                                   dtype):
+    """The plain decode unit of a tiny Llama captured as a CUDA graph: one
+    decode kernel launch a layer in each of the two eager warm-up runs and
+    the capture, none in a replay (the counter is the host's); the replay
+    writes the eager run's logits."""
+    from nanotpu_torch.ops.decode_attention import decode_attention
+    from nanotpu_torch.serving.engine import SlotCache, _rows_forward
+    from nanotpu_torch.serving.graphs import StepGraph
+
+    cfg, _, _, (params, _) = _serving_models(card)
+    if dtype == "bfloat16":
+        cfg, params = dataclasses.replace(cfg, dtype=dtype), _bf16(params)
+    cache = SlotCache.create(cfg, 4, 128, device=card)
+    cache.lengths.copy_(torch.tensor([0, 5, 64, 127], dtype=torch.int32))
+    tokens = torch.tensor([[3], [1], [4], [1]], device=card)
+    frozen = torch.zeros((4,), dtype=torch.int32, device=card)
+    logits = torch.empty((4, 1, cfg.vocab_size), device=card)
+
+    def body():
+        logits.copy_(_rows_forward(params, cfg, cache, tokens, frozen)[0])
+
+    before = decode_attention.launches
+    graph = StepGraph(body, torch.Generator(device=card),
+                      torch.cuda.graph_pool_handle(), torch.cuda.Stream(card))
+    assert decode_attention.launches - before == \
+        (StepGraph.WARMUP_RUNS + 1) * cfg.n_layers
+    eager = logits.clone()
+    logits.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert decode_attention.launches - before == \
+        (StepGraph.WARMUP_RUNS + 1) * cfg.n_layers
+    assert torch.equal(logits, eager)
+
+
 def _bwd_inputs(card, dtype, B, S, H, KV, D, causal, seed):
     gen = torch.Generator(device=card).manual_seed(seed)
 
