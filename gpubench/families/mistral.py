@@ -31,3 +31,4 @@ def port(conf: dict):
 
 
 reference_logits = dense.logits
+reference_loss = dense.loss

@@ -1,5 +1,7 @@
-"""The blocks both reference models share: RMSNorm, rotary embeddings,
-causal grouped-query attention and the SwiGLU MLP, in float32.
+"""What both reference models share, in float32: RMSNorm, rotary
+embeddings, causal grouped-query attention and the SwiGLU MLP; the
+decoder's frame around its layers (the embedding, the layer loop, the
+final norm and the head) and the next-token cross entropy.
 
 :class:`Numerics` is where a matrix product's operands are rounded: not at
 all (``float32``), or to float8 e4m3 with one scale a tensor (``fp8``), the
@@ -15,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 #: e4m3's largest finite value
 FP8_MAX = 448.0
@@ -125,3 +128,59 @@ def attention(attn: dict, h: torch.Tensor, conf: dict, positions, num: Numerics)
 
 def swiglu(h: torch.Tensor, w_gate, w_up, w_down, num: Numerics):
     return num.mm(F.silu(num.mm(h, w_gate)) * num.mm(h, w_up), w_down)
+
+
+def float32(tree):
+    """``tree`` with every leaf in float32 (a float32 leaf is itself, so a
+    gradient reaches it)."""
+    if isinstance(tree, dict):
+        return {k: float32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def decoder(params: dict, ids: torch.Tensor, block):
+    """(the residual stream [B, S, D] after every layer, [what each layer's
+    block returned beside it]) on tokens ``ids`` [B, S] at positions 0..S-1.
+
+    ``block(layer, x, positions) -> (x, extra)`` gets one layer's weights
+    cast to float32, one layer at a time, so that the float32 copy of a
+    whole bfloat16 model is never held; it runs under a checkpoint, so
+    that a backward holds one layer's activations at a time."""
+    positions = torch.arange(ids.shape[1], device=ids.device)
+    x = params["embed"][ids].float()
+    extras = []
+    for layer in params["layers"]:
+        x, extra = checkpoint(block, float32(layer), x, positions,
+                              use_reentrant=False)
+        extras.append(extra)
+    return x, extras
+
+
+def _head(params: dict, x: torch.Tensor, conf: dict, num: Numerics):
+    """Float32 logits of the residual stream ``x``: the final RMSNorm, then
+    the untied head."""
+    return num.mm(rms_norm(x, params["final_norm"], conf["rms_norm_eps"]),
+                  params["lm_head"])
+
+
+@torch.no_grad()
+def window_logits(weights: dict, conf: dict, tokens: list[int],
+                  wanted: range, block, num: Numerics) -> torch.Tensor:
+    """Float32 logits [len(wanted), vocab] at positions ``wanted`` of the
+    one sequence ``tokens``, teacher forced (position p predicts token
+    p + 1), through the layers' ``block`` (:func:`decoder`)."""
+    ids = torch.tensor(tokens, dtype=torch.long,
+                       device=weights["embed"].device)[None]
+    x, _ = decoder(weights, ids, block)
+    return _head(weights, x[0, wanted.start:wanted.stop], conf, num)
+
+
+def next_token_loss(params: dict, conf: dict, tokens: torch.Tensor, block,
+                    num: Numerics):
+    """(the mean cross entropy of tokens[:, 1:] given tokens[:, :-1], [what
+    each layer's ``block`` returned beside the stream])."""
+    x, extras = decoder(params, tokens[:, :-1], block)
+    logits = _head(params, x, conf, num)
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          tokens[:, 1:].reshape(-1))
+    return nll, extras

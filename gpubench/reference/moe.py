@@ -1,33 +1,43 @@
 """Mixtral-8x7B as published (the Mistral block with its MLP replaced by
 a top-2 mixture of 8 SwiGLU experts, the two routing weights renormalised
-to sum to one), and its training loss.
+to sum to one): its serving forward and its training loss.
 
-Departures, both stated in the configuration's ``assumed``:
+:func:`logits`, the serving check's forward, is always the published,
+dropless model: every token keeps both choices (the capacity is the
+sequence's length). It runs one sequence, teacher forced, in float32, one
+layer's weights cast from the harness's tensors at a time, so that it fits
+beside a served bfloat16 tree. A capacity in a configuration's
+``assumed`` is a departure of the training loss only: a served
+configuration that states one is held to the published model, and the
+choices the program drops show as a gap.
 
-* Capacity. The published model is dropless; the trained model here
-  routes at Switch capacity C = ceil(capacity_factor * T * top_k / E)
-  over the step's T tokens, as the configuration says. Tokens win an
-  expert's slots in token order, every token's first choice before any
-  second choice; a choice that finds its expert full contributes nothing
-  (its weight is not renormalised away).
+:func:`loss` departs from the published model as the configuration's
+``assumed`` says:
+
+* Capacity. It routes at Switch capacity C = ceil(capacity_factor * T *
+  top_k / E) over the step's T tokens. Tokens win an expert's slots in
+  token order, every token's first choice before any second choice; a
+  choice that finds its expert full contributes nothing (its weight is
+  not renormalised away).
 * The loss adds ``router_aux_loss_coef`` times each layer's Switch
   load-balancing loss, E * sum_e f_e * p_e, with f_e the share of tokens
   whose first choice is e and p_e the mean router probability of e.
 
 The experts run on the rows routed to them (a gather, one SwiGLU an
-expert, an ``index_add`` back), in float32, each layer under a
-checkpoint so that only one layer's activations live at a time.
+expert, an ``index_add`` back), in float32; the loss runs each layer
+under a checkpoint so that only one layer's activations live at a time.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from gpubench.reference.common import Numerics, attention, rms_norm, swiglu
+from gpubench.reference.common import (Numerics, attention, next_token_loss,
+                                       rms_norm, swiglu, window_logits)
 
 
 def route(probs: torch.Tensor, top_k: int, capacity: int):
@@ -54,13 +64,15 @@ def route(probs: torch.Tensor, top_k: int, capacity: int):
     return expert, weight, torch.stack(kept)
 
 
-def moe(block: dict, h: torch.Tensor, conf: dict, capacity_factor: float,
-        num: Numerics):
-    """(out [T, D], aux loss) of the expert layer on normed h [T, D]."""
+def moe(block: dict, h: torch.Tensor, conf: dict,
+        capacity_factor: float | None, num: Numerics):
+    """(out [T, D], aux loss) of the expert layer on normed h [T, D]; a
+    ``capacity_factor`` of None keeps every choice."""
     T, D = h.shape
     E, k = conf["num_local_experts"], conf["num_experts_per_tok"]
     probs = torch.softmax(num.mm(h, block["router"]), dim=-1)
-    capacity = max(1, math.ceil(capacity_factor * T * k / E))
+    capacity = (T if capacity_factor is None
+                else max(1, math.ceil(capacity_factor * T * k / E)))
     expert, weight, kept = route(probs, k, capacity)
     first = F.one_hot(expert[0], E).float().mean(dim=0)
     aux = E * (first * probs.mean(dim=0)).sum()
@@ -78,7 +90,8 @@ def moe(block: dict, h: torch.Tensor, conf: dict, capacity_factor: float,
     return out, aux
 
 
-def _layer(layer: dict, x, conf, positions, capacity_factor, num):
+def _layer(layer: dict, x, positions, *, conf: dict,
+           capacity_factor: float | None, num: Numerics):
     eps = conf["rms_norm_eps"]
     x = x + attention(layer["attn"], rms_norm(x, layer["attn_norm"], eps),
                       conf, positions, num)
@@ -88,22 +101,23 @@ def _layer(layer: dict, x, conf, positions, capacity_factor, num):
     return x + out.view(B, S, D), aux
 
 
+def logits(weights: dict, conf: dict, tokens: list[int], wanted: range,
+           num: Numerics | None = None) -> torch.Tensor:
+    """Float32 logits [len(wanted), vocab] at positions ``wanted`` of the
+    sequence ``tokens`` (position p predicts token p + 1), no choice
+    dropped."""
+    num = num or Numerics()
+    block = partial(_layer, conf=conf, capacity_factor=None, num=num)
+    return window_logits(weights, conf, tokens, wanted, block, num)
+
+
 def loss(params: dict, conf: dict, tokens: torch.Tensor,
          capacity_factor: float, num: Numerics | None = None) -> torch.Tensor:
     """Mean next-token cross entropy of tokens[:, 1:] given tokens[:, :-1],
     plus the weighted load-balancing loss; ``params`` float32 leaves."""
     num = num or Numerics()
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    S = inputs.shape[1]
-    positions = torch.arange(S, device=tokens.device)
-    x = params["embed"][inputs]
-    aux = torch.zeros((), device=tokens.device)
-    for layer in params["layers"]:
-        x, a = checkpoint(_layer, layer, x, conf, positions, capacity_factor,
-                          num, use_reentrant=False)
-        aux = aux + a
-    x = rms_norm(x, params["final_norm"], conf["rms_norm_eps"])
-    logits = num.mm(x, params["lm_head"])
-    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                          targets.reshape(-1))
+    block = partial(_layer, conf=conf, capacity_factor=capacity_factor,
+                    num=num)
+    nll, auxes = next_token_loss(params, conf, tokens, block, num)
+    aux = sum(auxes, torch.zeros((), device=tokens.device))
     return nll + conf["router_aux_loss_coef"] * aux
