@@ -15,8 +15,9 @@ them:
    64 and 128, S in {32, 130, 2048}, bf16 and f32, with and without lse,
    and at the training flagship's shape (B=8, S=2048, 16/4 heads, out and
    lse); then its time, the plain version's, SDPA's (a yardstick the port
-   never calls) and the bound, at the serving flagship's buckets and at the
-   training flagship's shape (SDPA's forward there too);
+   never calls) and the bound, at the serving flagship's prefill lengths
+   (each held against its plain version first) and at the training
+   flagship's shape (SDPA's forward there too);
 4. backward kernel phase: the fused, dq and dk/dv kernels against their
    plain version (``attention_bwd_ref``) at the training flagship's shape
    (B=8, S=2048, 16/4 heads, D=64, bf16), at D=128 (8/2 heads), at a
@@ -45,7 +46,7 @@ them:
 5. serving phase: the serving flagship preset (vocab 32768, dim 1024, 12
    layers, 16/8 heads, bf16) at full width with 8 slots and max_len 2048,
    random weights from a seeded generator, behind the port's HTTP server;
-   concurrent ``/v1/generate`` requests over several prefill buckets, one of
+   concurrent ``/v1/generate`` requests over several prefill lengths, one of
    them SSE; checks tokens, determinism, ``/v1/stats`` and ``/metrics``, and
    that every admission prefill launched the forward kernel once per layer
    and the decode kernel launched in the warm-up's runs and capture alone.
@@ -134,8 +135,8 @@ them:
     2 and 8 rows (decode tokens/s, tokens a row-cycle);
 12. Mixtral kernel phase (run after phase 4): the forward and the fused
     backward at Mixtral 8x7B's heads (32/8, head_dim 128, bf16) against
-    their plain versions and timed: the forward at the serving buckets
-    (B=1) and with lse at B=4, S=2048, the fused backward at B=4, S=2048;
+    their plain versions and timed: the forward at the serving prefill
+    lengths (B=1) and with lse at B=4, S=2048, the fused backward at B=4, S=2048;
 13. Mixtral training phase: Mixtral 8x7B's widths (vocab 32000, dim 4096,
     32/8 heads, ffn 14336, 8 experts, top-2, capacity factor 1.25, bf16,
     flash) cut to 2 layers, 10 steps of ``build_train_step`` with
@@ -362,19 +363,26 @@ def kernel_phase(card: str) -> dict:
                                   f"{causal} lse={need_lse}", out, lse,
                                   ref_out, ref_lse, dtype)
 
-    # times at the flagship's prefill shapes: B=1, H=16, KV=8, D=64, bf16
+    # the flagship's prefill lengths (the engine's rule over PROMPT_LENS,
+    # and its longest, S = max_len = 2048): B=1, H=16, KV=8, D=64, bf16;
+    # each checked before it is timed
+    from nanotpu_torch.serving.engine import prefill_len
+
     print(f"timings on {card}")
     rows = {}
-    for S in sorted({bucket(n) for n in PROMPT_LENS} | {2048}):
+    for S in sorted({prefill_len(n) for n in PROMPT_LENS} | {2048}):
         q, k, v = qkv(gen, 1, S, H, KV, 64, torch.bfloat16)
+        ref_out, _ = attention_lse_ref(q.float(), k.float(), v.float(), True)
+        err = check_forward(f"B=1 S={S} 16/8 D=64 bfloat16 causal (serving "
+                            f"prefill)", flash_attention(q, k, v, True), None,
+                            ref_out, None, torch.bfloat16)
+        del ref_out
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         ms = cuda_ms(lambda: flash_attention(q, k, v, True))
         plain_ms = cuda_ms(lambda: attention_lse_ref(q, k, v, True), reps=5)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
         bound_ms, bound_by = attention_bound_ms(1, S, H, KV, 64, torch.bfloat16)
-        ref_out, _ = attention_lse_ref(q.float(), k.float(), v.float(), True)
-        err = (flash_attention(q, k, v, True).float() - ref_out).abs().max().item()
         rows[S] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "max_abs_err": err}
@@ -854,12 +862,6 @@ def bf16_ptxas(report: dict) -> tuple:
     return found, notes
 
 
-def bucket(n: int) -> int:
-    from nanotpu_torch.serving.engine import DEFAULT_BUCKETS
-
-    return next(b for b in DEFAULT_BUCKETS if n <= b)
-
-
 def post(url: str, body: dict) -> bytes:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  method="POST")
@@ -1216,10 +1218,10 @@ def decode_only_profile(engine, prompts, n_new: int) -> dict:
 
 def measure(engine, rng, card: str) -> dict:
     """Bring-up numbers: time to first token of a lone request per prefill
-    bucket, the decode rate with every slot busy, and the device's busy
-    share in each."""
+    length (the engine's), the decode rate with every slot busy, and the
+    device's busy share in each."""
     cfg = engine.cfg
-    out = {"ttft_by_bucket_ms": {}}
+    out = {"ttft_by_prefill_len_ms": {}}
     for n in PROMPT_LENS:
         samples = []
         for _ in range(3):
@@ -1227,9 +1229,10 @@ def measure(engine, rng, card: str) -> dict:
             if not req.wait(300) or req.error:
                 raise AssertionError(f"prefill request failed: {req.error}")
             samples.append(req.ttft_s * 1e3)
-        out["ttft_by_bucket_ms"][bucket(n)] = float(np.median(samples))
-    print(f"TTFT of a lone request, median of 3, by prefill bucket on {card}: "
-          f"{out['ttft_by_bucket_ms']}")
+        out["ttft_by_prefill_len_ms"][engine._prefill_len(n)] = float(
+            np.median(samples))
+    print(f"TTFT of a lone request, median of 3, by prefill length on "
+          f"{card}: {out['ttft_by_prefill_len_ms']}")
 
     def decode(n_new):
         reqs = [engine.submit(rng.integers(0, cfg.vocab_size, 64).tolist(),
@@ -1255,7 +1258,8 @@ def measure(engine, rng, card: str) -> dict:
     wall, busy, top, _ = device_profile(lambda: engine.generate(prompt, 1))
     out["prefill_profile"] = {"wall_ms": wall, "device_busy_ms": busy,
                               "top": top}
-    print(f"one {bucket(len(prompt))}-bucket prefill under the profiler on "
+    print(f"one {engine._prefill_len(len(prompt))}-token prefill (a "
+          f"{len(prompt)}-token prompt) under the profiler on "
           f"{card}: wall {wall:.1f} ms, device busy "
           f"{'not measured' if busy is None else f'{busy:.1f} ms'}; "
           f"top kernels {top}")
@@ -1384,8 +1388,8 @@ def int8_serving_phase(card: str, bf16_greedy: list) -> dict:
     print(f"int8 serving on {card}: greedy tokens equal to bf16's "
           f"{out['greedy_equal_share']:.4f}; logits max|diff|/RMS "
           f"{out['logit_err_over_rms']:.4f}, top-1 equal "
-          f"{out['logit_top1_equal_share']:.4f}; TTFT by bucket "
-          f"{out['ttft_by_bucket_ms']}; decode {out['decode_tok_s']:.1f} "
+          f"{out['logit_top1_equal_share']:.4f}; TTFT by prefill length "
+          f"{out['ttft_by_prefill_len_ms']}; decode {out['decode_tok_s']:.1f} "
           f"tok/s at {SLOTS} busy slots; params {out['param_bytes']} B, "
           f"cache {out['cache_bytes']} B, peak memory "
           f"{out['peak_mem_gib']:.3f} GiB")
@@ -2657,10 +2661,11 @@ def mixtral_config(n_layers: int):
 
 def mixtral_kernel_phase(card: str) -> dict:
     """The forward and the fused backward at Mixtral 8x7B's heads (32 over
-    8 at head_dim 128, bf16, causal): the forward at the serving buckets of
-    PROMPT_LENS (B=1) and, with lse, at the training shape (B=4, S=2048),
-    the fused backward at the training shape; each held against its plain
-    version (the forward's out and lse to TOLERANCE, the gradients row by
+    8 at head_dim 128, bf16, causal): the forward at the serving prefill
+    lengths of PROMPT_LENS (B=1; rounded, as a dropless MoE prefills, and
+    bucketed, as this preset's capacity-bound one does) and, with lse, at
+    the training shape (B=4, S=2048), the fused backward at the training
+    shape; each held against its plain version (the forward's out and lse to TOLERANCE, the gradients row by
     row as in the backward phase), then timed against its bound, the plain
     version and SDPA."""
     from nanotpu_torch.ops import attention as att
@@ -2673,8 +2678,11 @@ def mixtral_kernel_phase(card: str) -> dict:
         return cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
 
+    from nanotpu_torch.serving.engine import prefill_len
+
     rows = {"serve": {}}
-    for S in sorted({bucket(n) for n in PROMPT_LENS}):
+    for S in sorted({prefill_len(n, capacity_bound=bound)
+                     for n in PROMPT_LENS for bound in (False, True)}):
         q, k, v = qkv(gen, 1, S, H, KV, D, bf16)
         ref_out, ref_lse = att.attention_lse_ref(q.float(), k.float(),
                                                  v.float(), True)
@@ -3229,8 +3237,8 @@ def mixtral_serving_phase(card: str) -> dict:
             eng.stop()
     print(f"Mixtral serving ({cfg.n_layers} layers at 8x7B width, "
           f"{param_bytes(params)} B of bf16 parameters) on {card}: TTFT by "
-          f"bucket {out['ttft_by_bucket_ms']} ms; decode at {SLOTS} busy "
-          f"slots graphed {out['graphed']['tok_s']:.1f} tok/s (ready in "
+          f"prefill length {out['ttft_by_prefill_len_ms']} ms; decode at "
+          f"{SLOTS} busy slots graphed {out['graphed']['tok_s']:.1f} tok/s (ready in "
           f"{out['graphed']['ready_s']:.1f} s), eager "
           f"{out['eager']['tok_s']:.1f} (ready in "
           f"{out['eager']['ready_s']:.1f} s); {SLOTS} x 64 tokens: graphed "
@@ -4084,17 +4092,20 @@ def main() -> None:
         "source": "nanotpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "nanotpu/ops/attention.py:90",
         **launches("flash_fwd"),
-        # the serving flagship's S=2048 prefill and the training shape
+        # the serving flagship's longest prefill (S = max_len = 2048) and
+        # the training shape
         "max_abs_err": max(at["max_abs_err"], rows["train"]["max_abs_err"]),
         "ms": at["ms"],
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"],
         "library_ms": at["library_ms"],
+        # every prefill length of the serving flagship (B=1, 16/8, D=64)
+        "serve": {S: row for S, row in rows.items() if S != "train"},
         # the training flagship's shape (B=8, 16/4 heads, with lse)
         **{f"train_{k}": v for k, v in rows["train"].items()},
         # Mixtral's heads (32/8, D=128): the training shape (B=4, S=2048,
-        # with lse) and the serving buckets (B=1)
+        # with lse) and the serving prefill lengths (B=1)
         **{f"mixtral_train_{k}": v for k, v in moe_kernels["train"].items()},
         "mixtral_serve": moe_kernels["serve"],
         # ring attention's body, 4 virtual ranks, forward and backward,

@@ -13,9 +13,11 @@ port of ``nanotpu/serving/engine.py``.
   keeps tokens, done flags and budgets on the device, fetching its
   [n_steps, SLOTS] token block with one host sync.
 * **Prefill through the flash kernel.** Admission runs
-  :func:`nanotpu_torch.models.generate._run` over the prompt padded to a
-  bucket length, so a flash config's prefill launches the CUDA kernel once
-  per layer; the row is then copied into its slot.
+  :func:`nanotpu_torch.models.generate._run` over the prompt padded to its
+  prefill length (:func:`prefill_len`: a bucket up to 128 tokens,
+  beyond that the length rounded up to the flash forward's 128-row block),
+  so a flash config's prefill launches the CUDA kernel once per layer; the
+  row is then copied into its slot.
 * **Decode attend through its own kernel.** Every ``_rows_forward`` (a
   decode step, a speculative draft or verify) attends each layer's slot
   cache through :func:`nanotpu_torch.ops.decode_attention.decode_attention`:
@@ -37,16 +39,18 @@ port of ``nanotpu/serving/engine.py``.
 * **Spans** (:mod:`nanotpu_torch.metrics.spans`, recorded only under the
   profiler or after ``enable()``): ``engine.queue`` (a request's wait from
   submission to its pop), ``engine.admit`` over ``engine.prefill`` (one a
-  request: true and bucket lengths), ``engine.chunk`` (its kind, units,
-  slots, active rows and the tokens it emitted) and ``engine.sync`` (each
-  fetch of first tokens or of a chunk's tokens); none inside a captured
-  unit.
+  request: ``tokens``, the true length, and ``bucket``, the length
+  prefilled), ``engine.chunk`` (its kind, units, slots, active rows and
+  the tokens it emitted) and ``engine.sync`` (each fetch of first tokens
+  or of a chunk's tokens); none inside a captured unit.
 
 MoE (a ``MixtralConfig`` engine) routes every decode step, speculative
 draft and verify at **full expert capacity** (C = rows x positions x
 top_k), so each slot's routing is independent of its batch-mates. Prefill
-keeps Switch capacity over the padded bucket length, and counts the real
-tokens it drops (``moe_prefill_dropped_total``).
+keeps Switch capacity over the padded length, and counts the real tokens
+it drops (``moe_prefill_dropped_total``); where that capacity can drop
+(``capacity_factor * top_k < n_experts``) the padded length stays the
+bucket, so that C, and which tokens are dropped, are the JAX engine's.
 
 The caches and the decode carry are allocated once and updated in place
 (the JAX engine donates its buffers to the same end), so a graph's
@@ -60,13 +64,13 @@ each card, and what the loop decides hangs on the host (when requests
 arrive, the measured policy's clock, what each row still owes). So rank 0
 leads: its loop decides each unit and first broadcasts a fixed-size
 descriptor of it over the world group (:meth:`Engine._announce`): an
-admission (slot, the prompt padded to its bucket, true length,
-temperature, token budget), a draft re-prime, a chunk (K, its unit count),
-a reset after a failed cycle, an idle heartbeat, or the stop. Every other
-rank follows (:meth:`Engine._follow`): it blocks on that broadcast and runs
-the same unit body on its shards, with the same host bookkeeping, from a
-generator seeded as rank 0's, so its requests (``followed``) end with the
-same tokens. ``submit`` on a follower raises. The captured graphs then
+admission (slot, the prompt, true length, temperature, token budget), a
+draft re-prime, a chunk (K, its unit count), a reset after a failed
+cycle, an idle heartbeat, or the stop. Every other rank follows
+(:meth:`Engine._follow`): it blocks on that broadcast and runs the same
+unit body on its shards, with the same host bookkeeping, from a generator
+seeded as rank 0's, so its requests (``followed``) end with the same
+tokens. ``submit`` on a follower raises. The captured graphs then
 hold the NCCL collectives of a step: the tp all-reduces, the logits'
 all-gather, the fsdp gathers and a MoE layer's ep all-reduce.
 """
@@ -115,9 +119,32 @@ from nanotpu_torch.serving.graphs import DecodeBuffers, StepGraph
 
 log = logging.getLogger("nanotpu_torch.serving")
 
-#: Prompt lengths are padded up to one of these before prefill, as in the
-#: JAX engine (where each bucket is one compiled program).
+#: Prompt lengths are padded up to one of these before prefill in the JAX
+#: engine, where each bucket is one compiled program; here they bound the
+#: prefill length (:func:`prefill_len`) and group draft re-primes.
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
+
+#: A prompt longer than this is prefilled at its length rounded up to a
+#: multiple of it: the bf16 flash forward's query block
+#: (``flash_fwd_bf16<128, 2>``, two warpgroups of 64 rows) and its key tile
+#: (``kFwdKeys``, ``ops/csrc/flash_fwd.cu``), so that no block is emptier
+#: than the prompt's own tail and every prefill GEMM's M is a multiple of
+#: it. The eager prefill takes any length; a bucket buys only padding.
+PREFILL_BLOCK = 128
+
+
+def prefill_len(n: int, buckets: tuple = DEFAULT_BUCKETS,
+                capacity_bound: bool = False) -> int:
+    """The length a prompt of ``n`` tokens is prefilled at: ``n`` rounded
+    up to :data:`PREFILL_BLOCK`, never past its bucket (the first of the
+    sorted ``buckets`` that holds it, else the last), so never past
+    ``max_len``. ``capacity_bound`` (a MoE whose Switch capacity can drop
+    a token) keeps the bucket: its capacity is a share of the padded
+    length, and a shorter one would drop more real tokens."""
+    bucket = next((b for b in buckets if n <= b), buckets[-1])
+    if capacity_bound:
+        return bucket
+    return min(bucket, -(-n // PREFILL_BLOCK) * PREFILL_BLOCK)
 
 
 class SlotCache(NamedTuple):
@@ -505,7 +532,7 @@ def prefill_request(params, cfg, prompt_padded, true_len: int, max_len: int,
     ``count_drops`` (MoE models) appends a fourth value, a 0-dim int32
     tensor on the device: the real tokens' choices that expert capacity
     dropped, over every layer. Prefill routes at Switch capacity over the
-    padded bucket, and capacity fills in token order, so the trailing pads
+    padded prompt, and capacity fills in token order, so the trailing pads
     lose their slots first: they are masked out of the count. ``shard``
     runs it on this rank's shards, its rows at the rank's kv heads."""
     cache = KVCache.create(cfg, 1, max_len, device=prompt_padded.device,
@@ -880,6 +907,10 @@ class Engine:
         #: drop); see prefill_request
         self.moe_prefill_dropped_total = 0
         self._count_drops = hasattr(cfg, "n_experts")
+        #: MoE at a capacity that can drop a token: the prefill's C grows
+        #: with its padded length, so that length stays the bucket
+        self._capacity_bound = self._count_drops and (
+            cfg.capacity_factor * cfg.top_k < cfg.n_experts)
 
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="serving-engine"
@@ -1033,6 +1064,10 @@ class Engine:
                 return b
         return self.buckets[-1]
 
+    def _prefill_len(self, n: int) -> int:
+        """:func:`prefill_len` over this engine's buckets and config."""
+        return prefill_len(n, self.buckets, self._capacity_bound)
+
     def _warm_up(self) -> None:
         """Build the kernel library, run one prefill at the smallest bucket
         (with a draft, one draft prefill too), and run each decode unit the
@@ -1145,10 +1180,11 @@ class Engine:
         """Prefill ``req`` into ``slot`` (and its draft row when ``prime``)
         as one ``engine.prefill`` span; returns (req, slot, first token, MoE
         drops), all on the device."""
-        S, bucket = len(req.prompt), self._bucket(len(req.prompt))
+        S = len(req.prompt)
+        padded_len = self._prefill_len(S)
         with spans.span("engine.prefill", rid=req.id, tokens=S,
-                        bucket=bucket):
-            padded = np.zeros((1, bucket), np.int64)
+                        bucket=padded_len):
+            padded = np.zeros((1, padded_len), np.int64)
             padded[0, :S] = req.prompt
             padded = torch.from_numpy(padded).to(self.device)
             out = prefill_request(

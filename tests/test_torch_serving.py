@@ -17,7 +17,11 @@ engine's. nanotpu's checks of which chunks were compiled become checks of
 the policy's arms (``_variant_ks``): the port compiles nothing.
 Fourth group: the decode units on fixed tensors (the CUDA graphs' bodies).
 Fifth group: Mixtral MoE serving, mirroring TestMoEServing,
-TestMoEDropCounter and TestSpeculativeMoEServing."""
+TestMoEDropCounter and TestSpeculativeMoEServing.
+Sixth group: the prefill length, which differs from the JAX engine's on
+purpose (the port pads a prompt to its length rounded up to the flash
+forward's 128-row block, nanotpu to its bucket): greedy tokens and MoE
+drop counts equal to the JAX engine's all the same."""
 
 import dataclasses
 import json
@@ -38,6 +42,7 @@ from nanotpu.models import llama as jl
 from nanotpu.models import mixtral as jm
 from nanotpu.serving import engine as je
 from nanotpu_torch.convert import params_from_numpy
+from nanotpu_torch.metrics import spans
 from nanotpu_torch.models import distill as td
 from nanotpu_torch.models import generate as tg
 from nanotpu_torch.models import llama as tl
@@ -1487,3 +1492,132 @@ class TestSpeculativeMoEServing:
                 eng.stop()
 
         assert run(True) == run(False)
+
+
+# -- sixth group: the prefill length ----------------------------------------
+
+#: prompts of 130-400 tokens: one bucket of (16, 512), four prefill lengths
+LONG_PROMPTS = [np.random.default_rng(n).integers(0, 256, n).tolist()
+                for n in (130, 200, 300, 400)]
+
+
+@pytest.fixture(scope="module")
+def wide_engines(models, moe_models):
+    """Engines at max_len 8192 over the default buckets: dense, and MoE
+    at a Switch capacity that can drop (1.25 x top-2 of 4 experts) and at
+    the dropless one (2.0 x top-2 = 4)."""
+    kw = dict(slots=1, max_len=8192, device="cpu")
+    engines = {"dense": te.Engine(models[1], CFG_T, **kw)}
+    for cf in (1.25, 2.0):
+        engines[cf] = te.Engine(
+            moe_models[1], dataclasses.replace(MCFG_T, capacity_factor=cf),
+            **kw)
+    yield engines
+    for eng in engines.values():
+        eng.stop()
+
+
+@pytest.mark.parametrize("n, want", [(20, 32), (128, 128), (129, 256),
+                                     (3072, 3072), (3073, 3200),
+                                     (7168, 7168), (8191, 8192)])
+def test_prefill_len_rounds_up_to_the_flash_block(wide_engines, n, want):
+    eng = wide_engines["dense"]
+    assert eng.buckets == te.DEFAULT_BUCKETS + (8192,)
+    assert eng._prefill_len(n) == want
+    assert te.prefill_len(n, eng.buckets) == want
+
+
+def test_prefill_len_is_within_a_block_and_never_above_its_bucket(
+        wide_engines):
+    eng = wide_engines["dense"]
+    for n in range(1, 8193):
+        got, bucket = eng._prefill_len(n), eng._bucket(n)
+        assert n <= got <= bucket, n
+        if n <= te.PREFILL_BLOCK:
+            assert got == bucket, n
+        else:
+            assert got % te.PREFILL_BLOCK == 0, n
+            assert got - n < te.PREFILL_BLOCK, n
+
+
+@pytest.mark.parametrize("cf, n, want", [(1.25, 1100, 2048),
+                                         (1.25, 3073, 8192),
+                                         (2.0, 1100, 1152),
+                                         (2.0, 3073, 3200)])
+def test_moe_prefill_len_keeps_the_bucket_where_capacity_can_drop(
+        wide_engines, cf, n, want):
+    """A capacity-bound MoE's C is a share of the padded length, so it
+    keeps the bucket; the dropless one (C = T) takes the rounded length."""
+    assert wide_engines[cf]._prefill_len(n) == want
+
+
+@pytest.mark.parametrize("variant", ["plain", "kv_int8", "draft"])
+def test_rounded_prefill_serves_the_jax_engines_greedy_tokens(models, drafts,
+                                                              variant):
+    """The JAX engine pads every prompt of 130-400 tokens to 512, the
+    port to 256, 256, 384 and 512: the same greedy tokens, from a plain
+    engine, an int8-KV one (a sharpened head, as in TestKvInt8) and one
+    with a draft, whose prime runs at the port's prefill length."""
+    params, tparams = models
+    jdraft, tdraft, dcfg = drafts
+    jkw = dict(slots=2, max_len=512, buckets=(16, 512))
+    tkw = dict(jkw, device="cpu")
+    if variant == "kv_int8":
+        params, tparams = sharp(params), sharp(tparams)
+        jkw["kv_int8"] = tkw["kv_int8"] = True
+    if variant == "draft":
+        spec = dict(draft_tokens=3, spec_policy="always")
+        jkw.update(spec, draft_params=jdraft, draft_cfg=DCFG_J)
+        tkw.update(spec, draft_params=tdraft, draft_cfg=dcfg)
+    jeng = je.Engine(params, CFG_J, chunk_steps=4, chunk_steps_max=4, **jkw)
+    want = run_engine(jeng, LONG_PROMPTS, 8)
+    eng = te.Engine(tparams, CFG_T, **tkw)
+    assert [eng._prefill_len(len(p)) for p in LONG_PROMPTS] == [256, 256,
+                                                                384, 512]
+    assert run_engine(eng, LONG_PROMPTS, 8) == want
+    if variant == "draft":
+        assert eng.spec_cycles_total > 0
+
+
+def test_capacity_bound_moe_admission_drops_like_the_jax_engine():
+    """At capacity factor 0.5 a prompt of 300 or 400 tokens in the 512
+    bucket overflows its experts (C = 128): the port keeps the bucket,
+    so it drops exactly the JAX engine's real tokens."""
+    cfg_j = dataclasses.replace(MCFG_J, capacity_factor=0.5)
+    cfg_t = dataclasses.replace(MCFG_T, capacity_factor=0.5)
+    params, tparams = moe_params(cfg_j)
+    prompts = LONG_PROMPTS[2:]
+    jeng = je.Engine(params, cfg_j, slots=2, max_len=512, buckets=(16, 512),
+                     chunk_steps=2, chunk_steps_max=2)
+    run_engine(jeng, prompts, 2)
+    eng = te.Engine(tparams, cfg_t, slots=2, max_len=512, buckets=(16, 512),
+                    device="cpu")
+    assert [eng._prefill_len(len(p)) for p in prompts] == [512, 512]
+    run_engine(eng, prompts, 2)
+    assert eng.moe_prefill_dropped_total > 0
+    assert eng.moe_prefill_dropped_total == jeng.moe_prefill_dropped_total
+
+
+def test_prefill_spans_carry_the_length_prefilled(models):
+    """Each ``engine.prefill`` span's ``bucket`` count is the length its
+    prompt was prefilled at, which ``prefill_true_share.serve`` reads."""
+    _, tparams = models
+    prompts = [[1, 2, 3]] + LONG_PROMPTS
+    eng = te.Engine(tparams, CFG_T, slots=2, max_len=512, buckets=(16, 512),
+                    device="cpu")
+    spans.clear()
+    try:
+        assert eng.wait_warm(60)
+        spans.enable(True)
+        run_engine(eng, prompts, 2)
+    finally:
+        eng.stop()
+        spans.enable(False)
+    found = [s for s in spans.recorded() if s.name == "engine.prefill"]
+    spans.clear()
+    assert sorted(s.counts["tokens"] for s in found) == sorted(
+        map(len, prompts))
+    for s in found:
+        assert s.counts["bucket"] == eng._prefill_len(s.counts["tokens"])
+    assert sorted(s.counts["bucket"] for s in found) == [16, 256, 256, 384,
+                                                         512]

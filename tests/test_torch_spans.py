@@ -201,7 +201,7 @@ def test_engine_prefill_counts_sum_to_the_prompts_and_their_buckets(served):
     assert sorted(s.rid for s in prefills) == sorted(r.id for r in reqs)
     assert sum(s.counts["tokens"] for s in prefills) == sum(map(len, PROMPTS))
     assert sum(s.counts["bucket"] for s in prefills) == sum(
-        eng._bucket(len(p)) for p in PROMPTS)
+        eng._prefill_len(len(p)) for p in PROMPTS)
     by_id = {s.id: s for s in found}
     assert {by_id[s.parent].name for s in prefills} == {"engine.admit"}
     admits = [s for s in found if s.name == "engine.admit"]
