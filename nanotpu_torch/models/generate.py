@@ -181,11 +181,12 @@ def _layer_with_cache(layer, x, cfg, cos, sin, k_cache, v_cache, start: int,
 
 
 def _run(params, tokens, cfg, cache: KVCache, full_prefill: bool = False,
-         return_all: bool = False, head: bool = True, drop_acc=None,
-         shard=None):
+         logits_at=-1, head: bool = True, drop_acc=None, shard=None):
     """Shared prefill/step body: tokens [B,S] appended at cache.length.
-    ``return_all`` returns logits for every fed position [B,S,V] (the
-    speculative verify needs them all), else last-token logits [B,V].
+    ``logits_at`` indexes the fed positions whose logits it returns, and
+    the final norm and lm_head run on those alone: the last by default
+    ([B,V]), a padded prompt's last real token, or ``slice(None)`` for
+    every position ([B,S,V], the speculative verify).
     ``head=False`` skips the final norm and lm_head and returns
     ``(None, cache)``: for callers that only prime the cache (a speculative
     draft's prefill), whose discarded projection can cost more than the
@@ -206,9 +207,8 @@ def _run(params, tokens, cfg, cache: KVCache, full_prefill: bool = False,
     new_cache = cache._replace(length=start + S)
     if not head:
         return None, new_cache
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    x_out = x if return_all else x[:, -1]
-    return head_logits(params, x_out, shard), new_cache
+    x = rms_norm(x[:, logits_at], params["final_norm"], cfg.norm_eps)
+    return head_logits(params, x, shard), new_cache
 
 
 def mesh_args(params, cfg, mesh):

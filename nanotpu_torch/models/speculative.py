@@ -145,7 +145,7 @@ def speculative_generate(
         drafts = torch.stack(drafts, dim=1)  # [B, K]: d1..dK
         v_logits, t_cache = _run(
             params, torch.cat([cur[:, None], drafts], dim=1), cfg, t_cache,
-            return_all=True, shard=shard,
+            logits_at=slice(None), shard=shard,
         )  # [B, K+1, V]
         if sampled:
             p_all = warp(v_logits)

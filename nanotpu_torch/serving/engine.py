@@ -16,8 +16,9 @@ port of ``nanotpu/serving/engine.py``.
   :func:`nanotpu_torch.models.generate._run` over the prompt padded to its
   prefill length (:func:`prefill_len`: a bucket up to 128 tokens,
   beyond that the length rounded up to the flash forward's 128-row block),
-  so a flash config's prefill launches the CUDA kernel once per layer; the
-  row is then copied into its slot.
+  so a flash config's prefill launches the CUDA kernel once per layer, and
+  the head runs on the last real token alone; the rows, at the prefilled
+  length, are then copied into the slot (:func:`insert_rows`).
 * **Decode attend through its own kernel.** Every ``_rows_forward`` (a
   decode step, a speculative draft or verify) attends each layer's slot
   cache through :func:`nanotpu_torch.ops.decode_attention.decode_attention`:
@@ -121,7 +122,7 @@ log = logging.getLogger("nanotpu_torch.serving")
 
 #: Prompt lengths are padded up to one of these before prefill in the JAX
 #: engine, where each bucket is one compiled program; here they bound the
-#: prefill length (:func:`prefill_len`) and group draft re-primes.
+#: prefill length (:func:`prefill_len`).
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
 #: A prompt longer than this is prefilled at its length rounded up to a
@@ -224,7 +225,11 @@ def _write_rows(cache_arr, new, offsets):
     admitted with >= S positions of slack); the clamp then writes over the
     row's still-valid prefix, which is safe solely because frozen rows are
     evicted and never attended again. Plain indexing would instead raise
-    or write out of range."""
+    or write out of range.
+
+    Positions at and past a row's length hold stale values (an earlier
+    occupant's rows, a prefill's pads, a rolled-back speculation): this
+    holds only because nothing reads past a row's frontier."""
     B, S = new.shape[:2]
     T = cache_arr.shape[1]
     start = torch.clamp(offsets.long(), 0, T - S)
@@ -504,30 +509,30 @@ def _fetch(t: torch.Tensor) -> torch.Tensor:
         return t.cpu()
 
 
-def prefill_cache_only(params, cfg, prompt_padded, max_len: int,
-                       shard=None):
+def prefill_cache_only(params, cfg, prompt_padded, shard=None):
     """Prefill that only primes cache rows, no lm_head (the speculative
     draft's admission path). Takes a [B, S] batch (the re-prime path's
-    rows of one bucket in one call); returns (k rows, v rows) for
-    :func:`insert_request` (B=1) or :func:`insert_rows`; ``shard``: at
-    this rank's kv heads."""
-    cache = KVCache.create(cfg, prompt_padded.shape[0], max_len,
+    rows of one prefill length in one call); returns (k rows, v rows),
+    per layer [B, S, KV, hd], for :func:`insert_rows`; ``shard``: at this
+    rank's kv heads."""
+    cache = KVCache.create(cfg, *prompt_padded.shape,
                            device=prompt_padded.device, tp=_tp(shard))
     _, cache = _run(params, prompt_padded, cfg, cache, full_prefill=True,
                     head=False, shard=shard)
     return cache.k, cache.v
 
 
-def prefill_request(params, cfg, prompt_padded, true_len: int, max_len: int,
-                    temp: float, generator, top_k: int = 0,
-                    top_p: float = 1.0, count_drops: bool = False,
-                    shard=None):
-    """Prefill one request (B=1, padded prompt) and sample its first token.
+def prefill_request(params, cfg, prompt_padded, true_len: int, temp: float,
+                    generator, top_k: int = 0, top_p: float = 1.0,
+                    count_drops: bool = False, shard=None):
+    """Prefill one request (B=1, padded prompt) and sample its first token
+    from the logits of its last real token, the one position the head
+    runs on.
 
     Returns (first_token 0-dim tensor, k rows, v rows) where rows are
-    per-layer [1, max_len, KV, hd] ready for :func:`insert_request`. The
-    pad region's k/v are garbage but sit at positions >= true_len, beyond
-    the row's frontier: never attended.
+    per-layer [1, S_pad, KV, hd] for :func:`insert_rows`. The pad region's
+    k/v are garbage but sit at positions >= true_len, beyond the row's
+    frontier: never attended.
 
     ``count_drops`` (MoE models) appends a fourth value, a 0-dim int32
     tensor on the device: the real tokens' choices that expert capacity
@@ -535,14 +540,13 @@ def prefill_request(params, cfg, prompt_padded, true_len: int, max_len: int,
     padded prompt, and capacity fills in token order, so the trailing pads
     lose their slots first: they are masked out of the count. ``shard``
     runs it on this rank's shards, its rows at the rank's kv heads."""
-    cache = KVCache.create(cfg, 1, max_len, device=prompt_padded.device,
-                           tp=_tp(shard))
+    cache = KVCache.create(cfg, *prompt_padded.shape,
+                           device=prompt_padded.device, tp=_tp(shard))
     drop_acc = [] if count_drops else None
-    logits_all, cache = _run(
+    logits, cache = _run(
         params, prompt_padded, cfg, cache, full_prefill=True,
-        return_all=True, drop_acc=drop_acc, shard=shard,
-    )  # [1, S_pad, V]; drop_acc holds one [S_pad] vector a MoE layer
-    logits = logits_all[:, true_len - 1]  # [1, V]
+        logits_at=true_len - 1, drop_acc=drop_acc, shard=shard,
+    )  # [1, V]; drop_acc holds one [S_pad] vector a MoE layer
     if temp > 0:
         first = sample_categorical(warp_logits(logits, temp, top_k, top_p),
                                    generator)
@@ -571,34 +575,24 @@ def _cache_planes(cache, ks, vs):
     return list(zip(cache.k, ks)) + list(zip(cache.v, vs))
 
 
-def insert_request(cache, ks, vs, slot: int, length: int):
-    """Copy a prefilled row into ``slot`` in place (no copy of the other
-    slots) and set its length. Positions past the prompt carry garbage
-    that stays beyond the row's frontier."""
-    for arr, row in _cache_planes(cache, ks, vs):
-        arr[slot] = row[0]
-    cache.lengths[slot] = length
-    return cache
-
-
 def insert_rows(cache, ks, vs, slots, lengths):
-    """Batched :func:`insert_request`: row j of the prefilled batch goes to
-    slot ``slots[j]`` with length ``lengths[j]`` (host sequences). A row
-    whose slot lies outside [0, SLOTS) is dropped, as the JAX engine's
-    ``mode="drop"`` scatter drops it: on a card an out-of-range index would
-    be a device-side assert that ends the process's CUDA context."""
+    """Copy row j of a prefilled batch (per layer [B, S, KV, hd]) into the
+    first S positions of slot ``slots[j]``, in place, and set that slot's
+    length to ``lengths[j]`` (host sequences, indexed as Python ints: no
+    index is uploaded). The slot's positions from S on keep its previous
+    occupant's rows: this holds only because nothing reads past a row's
+    frontier. A row whose slot lies outside [0, SLOTS) is dropped, as the
+    JAX engine's ``mode="drop"`` scatter drops it: on a card an
+    out-of-range index would be a device-side assert that ends the
+    process's CUDA context."""
     n_slots = cache.lengths.shape[0]
-    keep = [j for j, s in enumerate(slots) if 0 <= int(s) < n_slots]
-    if not keep:
-        return cache
-    device = cache.lengths.device
-    rows = torch.tensor(keep, dtype=torch.long, device=device)
-    dest = torch.tensor([int(slots[j]) for j in keep], dtype=torch.long,
-                        device=device)
+    keep = [(j, int(s), int(n)) for j, (s, n) in enumerate(zip(slots, lengths))
+            if 0 <= int(s) < n_slots]
     for arr, new in _cache_planes(cache, ks, vs):
-        arr[dest] = new.index_select(0, rows).to(arr.dtype)
-    cache.lengths[dest] = torch.tensor([int(lengths[j]) for j in keep],
-                                       dtype=torch.int32, device=device)
+        for j, s, _ in keep:
+            arr[s, :new.shape[1]] = new[j]
+    for _, s, n in keep:
+        cache.lengths[s].fill_(n)
     return cache
 
 
@@ -1058,35 +1052,30 @@ class Engine:
         }
 
     # -- engine loop -------------------------------------------------------
-    def _bucket(self, n: int) -> int:
-        for b in self.buckets:
-            if n <= b:
-                return b
-        return self.buckets[-1]
-
     def _prefill_len(self, n: int) -> int:
         """:func:`prefill_len` over this engine's buckets and config."""
         return prefill_len(n, self.buckets, self._capacity_bound)
 
     def _warm_up(self) -> None:
-        """Build the kernel library, run one prefill at the smallest bucket
-        (with a draft, one draft prefill too), and run each decode unit the
-        policy can pick eagerly; in graph mode, then capture it. Every slot
-        is frozen meanwhile (the buffers' initial state): the units' writes
-        land in empty rows, which admission overwrites whole, and no
-        length, token or budget moves."""
+        """Build the kernel library, run one prefill at a one-token
+        prompt's prefill length (with a draft, one draft prefill too), and
+        run each decode unit the policy can pick eagerly; in graph mode,
+        then capture it. Every slot is frozen meanwhile (the buffers'
+        initial state): the units' writes land at and past each row's
+        frontier, where nothing reads, and no length, token or budget
+        moves."""
         if self.device.type == "cuda":
             if self.device.index is not None:
                 # the loop's thread: its collectives and graphs use this card
                 torch.cuda.set_device(self.device)
             _build.build_all()
-        padded = torch.zeros((1, self.buckets[0]), dtype=torch.long,
+        padded = torch.zeros((1, self._prefill_len(1)), dtype=torch.long,
                              device=self.device)
-        prefill_request(self.params, self.cfg, padded, 1, self.max_len, 0.0,
-                        self._gen, shard=self._shard)
+        prefill_request(self.params, self.cfg, padded, 1, 0.0, self._gen,
+                        shard=self._shard)
         if self.draft_params is not None and self.spec_rules:
             prefill_cache_only(self.draft_params, self.draft_cfg, padded,
-                               self.max_len, shard=self._dshard)
+                               shard=self._dshard)
         if self.cuda_graphs:
             # one pool for all of this engine's graphs: they never run at
             # once, and each keeps its outputs in the fixed buffers
@@ -1188,20 +1177,20 @@ class Engine:
             padded[0, :S] = req.prompt
             padded = torch.from_numpy(padded).to(self.device)
             out = prefill_request(
-                self.params, self.cfg, padded, S, self.max_len,
-                req.temperature, self._gen, top_k=self.top_k, top_p=self.top_p,
+                self.params, self.cfg, padded, S, req.temperature, self._gen,
+                top_k=self.top_k, top_p=self.top_p,
                 count_drops=self._count_drops, shard=self._shard,
             )
             first, ks, vs = out[:3]
             # MoE: the drop count rides the same fetch as the first tokens
             drops = out[3] if self._count_drops else None
-            insert_request(self._cache, ks, vs, slot, S)
+            insert_rows(self._cache, ks, vs, [slot], [S])
             if self._d_cache is not None:
                 if prime:
                     dks, dvs = prefill_cache_only(
                         self.draft_params, self.draft_cfg, padded,
-                        self.max_len, shard=self._dshard)
-                    insert_request(self._d_cache, dks, dvs, slot, S)
+                        shard=self._dshard)
+                    insert_rows(self._d_cache, dks, dvs, [slot], [S])
                     self._draft_stale.discard(slot)
                 else:
                     self._draft_stale.add(slot)
@@ -1307,28 +1296,27 @@ class Engine:
         """Catch stale draft rows up to the target's frontier: the
         admission-time draft prefill re-run over each row's prompt and
         emitted tokens (all but the last, the next input), batched by
-        bucket: one draft forward and one insert per bucket, over exactly
-        the stale rows of that bucket. Numeric wobble between a prefilled
-        and an incrementally built draft row only perturbs proposals, never
-        emitted tokens."""
-        by_bucket: dict[int, list[tuple[int, int, list[int]]]] = {}
+        prefill length (:meth:`_prefill_len`): one draft forward and one
+        insert per length, over exactly the stale rows of that length.
+        Numeric wobble between a prefilled and an incrementally built draft
+        row only perturbs proposals, never emitted tokens."""
+        by_len: dict[int, list[tuple[int, int, list[int]]]] = {}
         for i in sorted(self._draft_stale):
             req = self._slot_req[i]
             if req is None or self._done[i]:
                 continue
             seq = req.prompt + req.out
             t_len = len(seq) - 1
-            by_bucket.setdefault(self._bucket(t_len), []).append(
+            by_len.setdefault(self._prefill_len(t_len), []).append(
                 (i, t_len, seq))
         self._draft_stale.clear()
-        for bucket, rows in by_bucket.items():
-            padded = np.zeros((len(rows), bucket), np.int64)
+        for padded_len, rows in by_len.items():
+            padded = np.zeros((len(rows), padded_len), np.int64)
             for j, (_, t_len, seq) in enumerate(rows):
                 padded[j, :t_len] = seq[:t_len]
             dks, dvs = prefill_cache_only(
                 self.draft_params, self.draft_cfg,
-                torch.from_numpy(padded).to(self.device), self.max_len,
-                shard=self._dshard)
+                torch.from_numpy(padded).to(self.device), shard=self._dshard)
             insert_rows(self._d_cache, dks, dvs, [i for i, _, _ in rows],
                         [t_len for _, t_len, _ in rows])
 

@@ -591,6 +591,29 @@ def test_kv_int8_engine_on_card_matches_cpu(card):
 
 
 @pytest.mark.cuda
+def test_stale_rows_past_a_frontier_change_no_token_on_card(card):
+    """One slot serves a 100-token prompt and then a 5-token one, whose
+    row keeps the first's rows past its 16 prefilled positions: the
+    graphed decode kernel reads none of them, so the short prompt's greedy
+    tokens equal a fresh engine's and generate()'s."""
+    from nanotpu_torch.serving.engine import Engine
+
+    cfg, _, _, (params, _) = _serving_models(card)
+    short = [3, 1, 4, 1, 5]
+    outs = []
+    for prompts in ([short], [list(range(1, 101)), short]):
+        eng = Engine(params, cfg, slots=1, max_len=128, buckets=(16, 64),
+                     device=card)
+        try:
+            outs.append([eng.generate(p, 8) for p in prompts][-1])
+        finally:
+            eng.stop()
+    assert eng._cache.k[0][0, 16:100].any()  # the long prompt's rows
+    want = tg.generate(params, torch.tensor([short], device=card), cfg, 8)
+    assert outs == [want[0].tolist()] * 2
+
+
+@pytest.mark.cuda
 def test_speculative_greedy_equals_plain_f32_on_card(card):
     from nanotpu_torch.serving.engine import Engine
 

@@ -184,12 +184,13 @@ def test_prefill_request_first_token_and_rows(models):
     padded = torch.zeros((1, 16), dtype=torch.long)
     padded[0, :5] = torch.tensor(prompt)
     with torch.inference_mode():
-        first, ks, vs = te.prefill_request(tparams, CFG_T, padded, 5, 32, 0.0,
+        first, ks, vs = te.prefill_request(tparams, CFG_T, padded, 5, 0.0,
                                            None)
         _, cache = tg.prefill(tparams, torch.tensor([prompt]), CFG_T, 32)
     assert int(first) == tg.generate(tparams, torch.tensor([prompt]), CFG_T,
                                      1)[0, 0].item()
-    assert len(ks) == CFG_T.n_layers and ks[0].shape == (1, 32, 2, 16)
+    # the rows are the prefilled length's, not max_len's
+    assert len(ks) == CFG_T.n_layers and ks[0].shape == (1, 16, 2, 16)
     for a, b in zip(ks + vs, cache.k + cache.v):
         torch.testing.assert_close(a[:, :5], b[:, :5], atol=1e-5, rtol=0)
 
@@ -635,9 +636,10 @@ def test_prefill_cache_only_matches_prefill_rows(models):
     _, tparams = models
     prompt = torch.tensor([[9, 8, 7, 6, 5, 0, 0, 0]])
     with torch.inference_mode():
-        ks, vs = te.prefill_cache_only(tparams, CFG_T, prompt, 32)
-        _, ks2, vs2 = te.prefill_request(tparams, CFG_T, prompt, 5, 32, 0.0,
+        ks, vs = te.prefill_cache_only(tparams, CFG_T, prompt)
+        _, ks2, vs2 = te.prefill_request(tparams, CFG_T, prompt, 5, 0.0,
                                          None)
+    assert ks[0].shape == (1, 8, 2, 16)
     for a, b in zip(ks + vs, ks2 + vs2):
         assert torch.equal(a, b)
 
@@ -947,7 +949,7 @@ def test_reprime_draft_primes_only_stale_rows(models, drafts):
             assert torch.equal(a[slot], b[slot])
     with torch.inference_mode():
         ks, _ = te.prefill_cache_only(
-            tdraft, dcfg, torch.tensor([[7] * 20 + [0] * 12]), 64)
+            tdraft, dcfg, torch.tensor([[7] * 20 + [0] * 12]))
     torch.testing.assert_close(eng._d_cache.k[0][2, :20], ks[0][0, :20],
                                rtol=0, atol=0)
 
@@ -1348,7 +1350,7 @@ def test_prefill_request_counts_drops_like_jax(cf):
                                    count_drops=True)
     with torch.inference_mode():
         first, ks, _, drops = te.prefill_request(
-            tparams, cfg_t, torch.from_numpy(padded), 10, 32, 0.0, None,
+            tparams, cfg_t, torch.from_numpy(padded), 10, 0.0, None,
             count_drops=True)
     assert int(first) == int(jfirst)
     assert drops.dtype == torch.int32 and int(drops) == int(jdrops)
@@ -1531,7 +1533,8 @@ def test_prefill_len_is_within_a_block_and_never_above_its_bucket(
         wide_engines):
     eng = wide_engines["dense"]
     for n in range(1, 8193):
-        got, bucket = eng._prefill_len(n), eng._bucket(n)
+        got = eng._prefill_len(n)
+        bucket = next(b for b in eng.buckets if n <= b)
         assert n <= got <= bucket, n
         if n <= te.PREFILL_BLOCK:
             assert got == bucket, n
@@ -1551,16 +1554,13 @@ def test_moe_prefill_len_keeps_the_bucket_where_capacity_can_drop(
     assert wide_engines[cf]._prefill_len(n) == want
 
 
-@pytest.mark.parametrize("variant", ["plain", "kv_int8", "draft"])
-def test_rounded_prefill_serves_the_jax_engines_greedy_tokens(models, drafts,
-                                                              variant):
-    """The JAX engine pads every prompt of 130-400 tokens to 512, the
-    port to 256, 256, 384 and 512: the same greedy tokens, from a plain
-    engine, an int8-KV one (a sharpened head, as in TestKvInt8) and one
-    with a draft, whose prime runs at the port's prefill length."""
+def variant_engines(models, drafts, variant, slots):
+    """(a JAX engine, a maker of port engines) at max_len 512 over buckets
+    (16, 512): plain, with an int8 KV cache (a sharpened head, as in
+    TestKvInt8), or with a draft speculating at every occupancy."""
     params, tparams = models
     jdraft, tdraft, dcfg = drafts
-    jkw = dict(slots=2, max_len=512, buckets=(16, 512))
+    jkw = dict(slots=slots, max_len=512, buckets=(16, 512))
     tkw = dict(jkw, device="cpu")
     if variant == "kv_int8":
         params, tparams = sharp(params), sharp(tparams)
@@ -1569,14 +1569,49 @@ def test_rounded_prefill_serves_the_jax_engines_greedy_tokens(models, drafts,
         spec = dict(draft_tokens=3, spec_policy="always")
         jkw.update(spec, draft_params=jdraft, draft_cfg=DCFG_J)
         tkw.update(spec, draft_params=tdraft, draft_cfg=dcfg)
-    jeng = je.Engine(params, CFG_J, chunk_steps=4, chunk_steps_max=4, **jkw)
+    return (je.Engine(params, CFG_J, chunk_steps=4, chunk_steps_max=4,
+                      **jkw),
+            lambda: te.Engine(tparams, CFG_T, **tkw))
+
+
+@pytest.mark.parametrize("variant", ["plain", "kv_int8", "draft"])
+def test_rounded_prefill_serves_the_jax_engines_greedy_tokens(models, drafts,
+                                                              variant):
+    """The JAX engine pads every prompt of 130-400 tokens to 512, the
+    port to 256, 256, 384 and 512: the same greedy tokens, from a plain
+    engine, an int8-KV one and one with a draft, whose prime runs at the
+    port's prefill length."""
+    jeng, port = variant_engines(models, drafts, variant, slots=2)
     want = run_engine(jeng, LONG_PROMPTS, 8)
-    eng = te.Engine(tparams, CFG_T, **tkw)
+    eng = port()
     assert [eng._prefill_len(len(p)) for p in LONG_PROMPTS] == [256, 256,
                                                                 384, 512]
     assert run_engine(eng, LONG_PROMPTS, 8) == want
     if variant == "draft":
         assert eng.spec_cycles_total > 0
+
+
+@pytest.mark.parametrize("variant", ["plain", "kv_int8", "draft"])
+def test_a_slots_stale_rows_past_its_frontier_change_no_token(models, drafts,
+                                                              variant):
+    """Admission writes only the prefilled positions, so one slot that
+    served a 400-token prompt keeps those rows past a 5-token prompt's 16:
+    the short prompt's greedy tokens equal a fresh engine's and the JAX
+    engine's all the same, plain, with an int8 KV cache and with a
+    draft (whose row is stale too)."""
+    short = [3, 1, 4, 1, 5]
+    jeng, port = variant_engines(models, drafts, variant, slots=1)
+    want = run_engine(jeng, [short], 8)
+    assert run_engine(port(), [short], 8) == want
+    eng = port()
+    try:
+        assert len(eng.generate(LONG_PROMPTS[-1], 8)) == 8
+        assert eng.generate(short, 8) == want[0]
+    finally:
+        eng.stop()
+    caches = [eng._cache] + ([eng._d_cache] if variant == "draft" else [])
+    for cache in caches:  # the long prompt's rows are still there
+        assert cache.k[0][0, 16:400].any()
 
 
 def test_capacity_bound_moe_admission_drops_like_the_jax_engine():
